@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (smart_tree_tpu_torch) on one
+NVIDIA card (written for the H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0, no result line):
+  1. print the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+     TF32 off;
+  3. kernels: on the plans of the bench tree's batches, hold the slab
+     kernel against its plain version at every (Cin, Cout) the bf16 forward
+     gives it, and the fused kernel at the largest shape it takes; time each
+     with CUDA events beside the plain version, the gather + torch.matmul
+     composition (library_ms) and the least time the card could take;
+  4. bf16 forward of the bench tree (generate_tree seed 0, 12 m,
+     noble-elevator-58, batch capacity <= 262144): one warm-up, counts
+     reset, three timed forwards; the slab kernel must have launched;
+  5. fp32 forward with fused=True (fused kernel launched) against the fp32
+     plain forward on the card; class agreement with the bf16 forward;
+  6. fp32 forward on the card against the CPU forward on a small tree (the
+     CPU path is the one the tests hold against the JAX package).
+Then one line {"kernels": [...]}, the forward times, and as the last line
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+WEIGHTS = REPO / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
+BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
+                  foliage_points=20000)
+SMALL_TREE = dict(seed=3, height=2.0, trunk_radius=0.08, points_per_m2=3000.0,
+                  foliage_points=300)
+MAX_BATCH_CAPACITY = 262144
+# H100 SXM published peaks (dense): device memory bytes/s, bf16 tensor-core
+# FLOP/s, fp32 (non-tensor-core) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SLAB_ATOL = 2e-4   # bf16 operands on both sides: fp32 summation order only
+FUSED_TOL = dict(rtol=1e-4, atol=1e-5)   # fp32 both sides
+MODEL_TOL = dict(rtol=1e-3, atol=1e-4)   # the tests' model tolerance
+
+
+def log(msg: str) -> None:
+    print(f"# {time.strftime('%H:%M:%S')} {msg}", file=sys.stderr, flush=True)
+
+
+def cuda_time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call over `iters` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(rb, cin: int, cout: int, precision: str):
+    """Least time (ms) for out[M,Cout] = gather(table by rb[M,K3]) @ W: the
+    larger of bytes over memory rate (the rulebook, the table rows it names,
+    the weights, each read once, the output written once; 4-byte elements)
+    and this rulebook's operations (2 * valid entries * Cin * Cout) over the
+    peak rate for the operand type."""
+    m, k3 = rb.shape
+    valid = rb[rb >= 0]
+    rows_read = int(valid.unique().numel())
+    bytes_ = 4 * (m * k3 + rows_read * cin + k3 * cin * cout + m * cout)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * valid.numel() * cin * cout / PEAK_FLOPS[precision] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+
+def unet_convs(plan, planes):
+    """Every 27-column conv of one SmartTree forward on `plan`:
+    (name, rulebook, table level, Cin, Cout)."""
+    out = []
+    levels = len(planes)
+    for lvl in range(levels):
+        lv, c = plan.levels[lvl], planes[lvl]
+        out += [(f"L{lvl}.Head.0", lv.subm_rb, lvl, c, c),
+                (f"L{lvl}.Head.3", lv.subm_rb, lvl, c, c)]
+        if lvl < levels - 1:
+            c2 = planes[lvl + 1]
+            out += [(f"L{lvl}.Encode", lv.down_rb, lvl, c, c2),
+                    (f"L{lvl}.Decode", lv.up_rb, lvl + 1, c2, c),
+                    (f"L{lvl}.Tail.0", lv.subm_rb, lvl, 2 * c, c),
+                    (f"L{lvl}.Tail.3", lv.subm_rb, lvl, c, c)]
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs "
+              "an NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    from smart_tree_tpu_torch.core import fused_conv, kernels, slab_conv
+    from smart_tree_tpu_torch.core.sparse_ops import ConvConfig
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.dataset import BlockTiler
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    # 1. the card
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = kernels.build()
+    kernels.load()
+    build_s = time.perf_counter() - t0
+    log(f"kernels built in {build_s:.1f} s: {lib_path.name}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 3. kernels at the main path's shapes
+    cloud, _ = generate_tree(**BENCH_TREE)
+    cloud = CentreCloud()(cloud)
+    mi16 = ModelInference(WEIGHTS, voxel_size=0.01, block_size=4.0, buffer_size=0.4,
+                          batch_size=4, precision="bfloat16")
+    mi16.max_batch_capacity = min(mi16.max_batch_capacity, MAX_BATCH_CAPACITY)
+    batches = list(BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
+        4, max_capacity=mi16.max_batch_capacity))
+    # every 27-column conv of every batch, on the plan the forward settles on
+    # (overflow retries included): (name, rulebook, table rows, Cin, Cout,
+    # the batch's slab row threshold)
+    convs = []
+    for vb in batches:
+        level_caps = None
+        while True:
+            x, plan, _ = mi16._plan_batch(vb, level_caps)
+            counts = [int(lv.count) for lv in plan.levels]
+            caps = [lv.keys.shape[0] for lv in plan.levels]
+            if all(c <= k for c, k in zip(counts, caps)):
+                break
+            level_caps = ModelInference._retry_caps(counts, caps)
+        log(f"batch capacity {len(vb.coords)}: level capacities {caps}, counts {counts}")
+        slab_min = ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
+        convs += [(f"cap{len(vb.coords)}.{name}", rb, plan.levels[lvl].keys.shape[0],
+                   cin, cout, slab_min)
+                  for name, rb, lvl, cin, cout in unet_convs(plan, mi16.model.unet_planes)]
+    log(f"{len(cloud)} points, {len(batches)} batches, {len(convs)} convs")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def operands(rb, n, cin, cout):
+        feats = torch.randn((n, cin), generator=gen, device=dev)
+        w = torch.randn((27, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
+        return feats, rb, w
+
+    # the slab kernel at each (Cin, Cout) it takes, at its tallest rulebook
+    shapes = {}
+    for name, rb, n, cin, cout, slab_min in convs:
+        if rb.shape[0] >= slab_min:
+            key = (cin, cout)
+            if key not in shapes or rb.shape[0] > shapes[key][1].shape[0]:
+                shapes[key] = (name, rb, n)
+    slab_rows_out = []
+    for (cin, cout), (name, rb, n) in sorted(shapes.items()):
+        feats, rb, w = operands(rb, n, cin, cout)
+        got = slab_conv.slab_gather_conv(feats, rb, w)
+        ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=0, atol=SLAB_ATOL):
+            raise AssertionError(f"slab kernel {name} ({cin}->{cout}): max abs err {err}")
+        rel, starts, nchunks, tiles = slab_conv.prepare(rb, cout)
+        out = torch.empty_like(got)
+        n, m = feats.shape[0], rb.shape[0]
+        fe16 = torch.cat([feats, feats.new_zeros((1, cin))]).to(torch.bfloat16)
+        idx = torch.where(rb >= 0, rb, n).long()
+        w16 = w.to(torch.bfloat16).reshape(27 * cin, cout)
+        b_ms, b_by = bound(rb, cin, cout, "bfloat16")
+        row = {
+            "conv": name, "cin": cin, "cout": cout, "m": m, "n": n,
+            "max_abs_err": err,
+            "ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv(feats, rb, w)),
+            "kernel_ms": cuda_time_ms(torch, lambda: slab_conv._launch(
+                feats, rel, starts, nchunks, tiles, w, out, slab_conv.SLAB_ROWS)),
+            "plain_ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv_plain(feats, rb, w)),
+            "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe16[idx].view(m, -1), w16)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        log(f"slab {name} {cin}->{cout} M={m}: {row}")
+        slab_rows_out.append(row)
+    if not slab_rows_out:
+        raise AssertionError("no conv of the bench plan reaches the slab kernel")
+
+    # fused kernel at the largest fp32 shape it takes (table <= 8 MiB)
+    fused_convs = [c for c in convs
+                   if fused_conv.should_use_fused(c[1].shape[0], 27, c[3], c[4])]
+    name, rb, n, cin, cout, _ = max(fused_convs, key=lambda c: c[1].shape[0] * c[3] * c[4])
+    feats, rb, w = operands(rb, n, cin, cout)
+    got = fused_conv.fused_gather_gemm(feats, rb, w)
+    ref = fused_conv.fused_gather_gemm_plain(feats, rb, w)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, **FUSED_TOL):
+        raise AssertionError(f"fused kernel {name} ({cin}->{cout}): max abs err {err}")
+    n, m = feats.shape[0], rb.shape[0]
+    fe = torch.cat([feats, feats.new_zeros((1, cin))])
+    idx = torch.where(rb >= 0, rb, n).long()
+    w2 = w.reshape(27 * cin, cout)
+    out = torch.empty_like(got)
+    b_ms, b_by = bound(rb, cin, cout, "float32")
+    fused_row = {
+        "conv": name, "cin": cin, "cout": cout, "m": m, "n": n, "max_abs_err": err,
+        "ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm(feats, rb, w)),
+        "kernel_ms": cuda_time_ms(torch, lambda: fused_conv._launch(feats, rb, w, out)),
+        "plain_ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm_plain(feats, rb, w)),
+        "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe[idx].view(m, -1), w2)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log(f"fused {name} {cin}->{cout} M={m}: {fused_row}")
+    del x, plan, convs, shapes, feats, rb, w, fe, idx, out, got, ref
+
+    # 4. bf16 forward of the bench tree
+    n_interior = sum(int(b.mask.sum()) for b in batches)
+    mi16.forward(cloud)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slab_conv.slab_gather_conv.launches = 0
+    fused_conv.fused_gather_gemm.launches = 0
+    times16 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out16 = mi16.forward(cloud)
+        torch.cuda.synchronize()
+        times16.append(time.perf_counter() - t0)
+    slab_launches = slab_conv.slab_gather_conv.launches
+    peak16 = torch.cuda.max_memory_allocated()
+    if slab_launches == 0:
+        raise AssertionError("the bf16 forward never launched the slab kernel")
+    if len(out16.xyz) != n_interior:
+        raise AssertionError(f"bf16 forward returned {len(out16.xyz)} points, "
+                             f"expected {n_interior}")
+    for k in ("xyz", "medial_vector", "class_l"):
+        if not np.isfinite(getattr(out16, k)).all():
+            raise AssertionError(f"bf16 forward: non-finite {k}")
+    log(f"bf16 forwards {times16} s, slab launches {slab_launches}")
+
+    # 5. fp32 forward, fused kernel vs the plain gather + matmul
+    mi32f = ModelInference(WEIGHTS, batch_size=4, precision="float32", fused=True)
+    mi32 = ModelInference(WEIGHTS, batch_size=4, precision="float32")
+    for mi in (mi32f, mi32):
+        mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
+        mi.predict(cloud)  # warm-up
+    slab_conv.slab_gather_conv.launches = 0
+    fused_conv.fused_gather_gemm.launches = 0
+    t0 = time.perf_counter()
+    out32f = mi32f.predict(cloud)
+    torch.cuda.synchronize()
+    time32f = time.perf_counter() - t0
+    fused_launches = fused_conv.fused_gather_gemm.launches
+    if fused_launches == 0:
+        raise AssertionError("the fused fp32 forward never launched the fused kernel")
+    t0 = time.perf_counter()
+    out32 = mi32.predict(cloud)
+    torch.cuda.synchronize()
+    time32 = time.perf_counter() - t0
+    np.testing.assert_array_equal(out32f["xyz"], out32["xyz"])
+    np.testing.assert_allclose(out32f["radius"], out32["radius"], **MODEL_TOL)
+    np.testing.assert_allclose(out32f["direction"], out32["direction"], **MODEL_TOL)
+    cls32f = out32f["class_logits"].argmax(1)
+    cls32 = out32["class_logits"].argmax(1)
+    agree_fused = float((cls32f == cls32).mean())
+    if agree_fused < 0.999:
+        raise AssertionError(f"fused vs plain fp32 class agreement {agree_fused}")
+    np.testing.assert_array_equal(out16.xyz, out32["xyz"])
+    agree_bf16 = float((out16.class_l[:, 0] == cls32).mean())
+    log(f"fp32 fused {time32f:.3f} s, plain {time32:.3f} s, fused launches {fused_launches}")
+
+    # 6. the card against the CPU path on a small tree
+    small = CentreCloud()(generate_tree(**SMALL_TREE)[0])
+    got = ModelInference(WEIGHTS, precision="float32").predict(small)
+    ref = ModelInference(WEIGHTS, precision="float32", device="cpu").predict(small)
+    np.testing.assert_array_equal(got["xyz"], ref["xyz"])
+    for k in ("radius", "direction", "class_logits"):
+        np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=k)
+
+    def summed(rows, key):
+        return sum(r[key] for r in rows)
+
+    entries = [
+        {
+            "name": "slab_gather_conv",
+            "route": "cuda",
+            "source": "smart_tree_tpu_torch/csrc/slab_conv.cu",
+            "replaces": "smart_tree_tpu/core/pallas_slab.py:269",
+            "launches": slab_launches,
+            # one call at each (Cin, Cout) the bf16 forward gives the kernel,
+            # summed; per-shape rows under "shapes"
+            "max_abs_err": max(r["max_abs_err"] for r in slab_rows_out),
+            "ms": summed(slab_rows_out, "ms"),
+            "kernel_ms": summed(slab_rows_out, "kernel_ms"),
+            "plain_ms": summed(slab_rows_out, "plain_ms"),
+            "bound_ms": summed(slab_rows_out, "bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in slab_rows_out)
+            else "operations",
+            "library_ms": summed(slab_rows_out, "library_ms"),
+            "shapes": slab_rows_out,
+        },
+        {
+            "name": "fused_gather_gemm",
+            "route": "cuda",
+            "source": "smart_tree_tpu_torch/csrc/fused_conv.cu",
+            "replaces": "smart_tree_tpu/core/pallas_ops.py:86",
+            "launches": fused_launches,
+            **{k: fused_row[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")},
+            "shapes": [fused_row],
+        },
+    ]
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({
+        "card": card,
+        "build_s": build_s,
+        "points": len(cloud),
+        "batches": len(batches),
+        "interior_voxels": n_interior,
+        "bf16_forward_s": times16,
+        "bf16_points_per_s": len(cloud) / (sum(times16) / len(times16)),
+        "bf16_peak_bytes": peak16,
+        "fp32_fused_forward_s": time32f,
+        "fp32_plain_forward_s": time32,
+        "class_agreement_fused_vs_plain_fp32": agree_fused,
+        "class_agreement_bf16_vs_fp32": agree_bf16,
+    }), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

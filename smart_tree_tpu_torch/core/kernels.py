@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+Each source is compiled by its own `nvcc` process, all started together,
+for sm_90a; the objects are linked into one shared library with a plain C
+interface and loaded with ctypes. The build runs at first use, from the
+sources in this package only, into `build/torch_kernels/` beside the
+package (listed in .gitignore); the library's name carries a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+not. Nothing here runs at import time: this module imports on hosts
+without nvcc or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_SOURCES = ("slab_conv.cu", "fused_conv.cu")
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every pointer and the stream as c_void_p, so ctypes does not
+# cut 64-bit addresses to int
+_SIGNATURES = {
+    # feats, n, cin, rel, starts, nchunks, tiles, weights, cout, out, m, slab, stream
+    "st_slab_conv": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P],
+    # cout -> output rows per CTA
+    "st_slab_conv_tile": [_I],
+    # feats, n, cin, rulebook, m, k3, weights, cout, out, stream
+    "st_fused_conv": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a host with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_ARCH + _FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if not built yet) and return the library path.
+    The compiler's register and shared-memory report is kept beside the
+    library in `ptxas.log`."""
+    lib_path = _BUILD_DIR / f"libst_torch_kernels_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        procs = []
+        objs = []
+        for name in _SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            objs.append(str(obj))
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
+            procs.append(
+                (name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+            )
+        logs = []
+        failed = []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        (_BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib_path.name
+        subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *objs],
+            check=True, capture_output=True, text=True,
+        )
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
