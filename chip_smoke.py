@@ -10,14 +10,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      TF32 off;
   3. kernels: on the plans of the bench tree's batches, hold the slab
      kernel against its plain version at every (Cin, Cout) the bf16 forward
-     gives it, and the fused kernel at the largest shape it takes; time each
-     with CUDA events beside the plain version, the gather + torch.matmul
-     composition (library_ms) and the least time the card could take;
+     gives it, and the fused kernel at every (K3, Cin, Cout) the fp32
+     fused=True forward gives it, each at its tallest rulebook; launch each
+     twice on one input and require equal bits; time each with CUDA events
+     (through the wrapper, `ms`, and as the bare launch, `kernel_ms`) beside
+     the plain version, the gather + torch.matmul composition (library_ms)
+     and the least time the card could take;
   4. bf16 forward of the bench tree (generate_tree seed 0, 12 m,
      noble-elevator-58, batch capacity <= 262144): one warm-up, counts
-     reset, three timed forwards; the slab kernel must have launched;
+     reset, three timed forwards; the slab kernel must have launched; then
+     one more forward under torch.profiler for the slab kernel's summed
+     device time and launches inside one forward;
   5. fp32 forward with fused=True (fused kernel launched) against the fp32
-     plain forward on the card; class agreement with the bf16 forward;
+     plain forward on the card; class agreement with the bf16 forward; one
+     more fused forward under torch.profiler, as in 4;
   6. fp32 forward on the card against the CPU forward on a small tree (the
      CPU path is the one the tests hold against the JAX package).
 Then one line {"kernels": [...]}, the forward times, and as the last line
@@ -81,6 +87,29 @@ def bound(rb, cin: int, cout: int, precision: str):
     t_ops = 2.0 * valid.numel() * cin * cout / PEAK_FLOPS[precision] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
+
+def kernel_ms_in(torch, fn, needles):
+    """Run fn once under torch.profiler; per needle, the summed device
+    milliseconds and the call count of the kernels whose name contains it."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {needle: [0.0, 0] for needle in needles}
+    seen = 0.0
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue   # host-op rows repeat their kernels' time
+        us = float(getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0)))
+        seen += us
+        for needle in needles:
+            if needle in evt.key:
+                found[needle][0] += us / 1e3
+                found[needle][1] += evt.count
+    if seen <= 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return found
 
 
 def unet_convs(plan, planes):
@@ -170,35 +199,63 @@ def main() -> int:
         w = torch.randn((27, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
         return feats, rb, w
 
-    # the slab kernel at each (Cin, Cout) it takes, at its tallest rulebook
-    shapes = {}
-    for name, rb, n, cin, cout, slab_min in convs:
-        if rb.shape[0] >= slab_min:
-            key = (cin, cout)
-            if key not in shapes or rb.shape[0] > shapes[key][1].shape[0]:
-                shapes[key] = (name, rb, n)
-    slab_rows_out = []
-    for (cin, cout), (name, rb, n) in sorted(shapes.items()):
-        feats, rb, w = operands(rb, n, cin, cout)
-        got = slab_conv.slab_gather_conv(feats, rb, w)
-        ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
+    if kernels.load().st_slab_conv_tile() != slab_conv.TILE_ROWS:
+        raise AssertionError("slab_conv.TILE_ROWS is not the built kernel's tile")
+
+    def twice_equal(fn, what):
+        """The kernel's result, after a second launch gave the same bits."""
+        a, b = fn(), fn()
         torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two launches on one input differ")
+        return a
+
+    def sparsity(rb):
+        """How full the rulebook is: share of valid entries, 128-row tiles,
+        and the tiles that hold a valid entry at all."""
+        valid = rb >= 0
+        tiles = -(-rb.shape[0] // slab_conv.TILE_ROWS)
+        rows = torch.zeros(tiles * slab_conv.TILE_ROWS, dtype=torch.bool, device=rb.device)
+        rows[: rb.shape[0]] = valid.any(dim=1)
+        return {"valid_share": float(valid.float().mean()), "tiles": tiles,
+                "nonempty_tiles": int(rows.view(tiles, -1).any(dim=1).sum())}
+
+    def tallest(select):
+        """Per (Cin, Cout), the tallest rulebook among the convs selected."""
+        best = {}
+        for name, rb, n, cin, cout, slab_min in convs:
+            if select(rb, cin, cout, slab_min):
+                key = (cin, cout)
+                if key not in best or rb.shape[0] > best[key][1].shape[0]:
+                    best[key] = (name, rb, n)
+        return sorted(best.items())
+
+    # the slab kernel at each (Cin, Cout) it takes, at its tallest rulebook
+    slab_rows_out = []
+    for (cin, cout), (name, rb, n) in tallest(lambda rb, ci, co, smin: rb.shape[0] >= smin):
+        feats, rb, w = operands(rb, n, cin, cout)
+        got = twice_equal(lambda: slab_conv.slab_gather_conv(feats, rb, w), f"slab kernel {name}")
+        ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
         err = float((got - ref).abs().max())
         if not torch.allclose(got, ref, rtol=0, atol=SLAB_ATOL):
             raise AssertionError(f"slab kernel {name} ({cin}->{cout}): max abs err {err}")
-        rel, starts, nchunks, tiles = slab_conv.prepare(rb, cout)
         out = torch.empty_like(got)
+        scratch = slab_conv._scratch(w)
         n, m = feats.shape[0], rb.shape[0]
         fe16 = torch.cat([feats, feats.new_zeros((1, cin))]).to(torch.bfloat16)
         idx = torch.where(rb >= 0, rb, n).long()
         w16 = w.to(torch.bfloat16).reshape(27 * cin, cout)
         b_ms, b_by = bound(rb, cin, cout, "bfloat16")
+        no_rb = torch.full_like(rb, -1)
         row = {
-            "conv": name, "cin": cin, "cout": cout, "m": m, "n": n,
+            "conv": name, "cin": cin, "cout": cout, "m": m, "n": n, **sparsity(rb),
             "max_abs_err": err,
+            # the same launch on a rulebook without a valid entry: what reading
+            # the rulebook and storing zeros costs
+            "all_missing_kernel_ms": cuda_time_ms(torch, lambda: slab_conv._launch(
+                feats, no_rb, w, scratch, out)),
             "ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv(feats, rb, w)),
-            "kernel_ms": cuda_time_ms(torch, lambda: slab_conv._launch(
-                feats, rel, starts, nchunks, tiles, w, out, slab_conv.SLAB_ROWS)),
+            "kernel_ms": cuda_time_ms(torch, lambda: slab_conv._launch(feats, rb, w, scratch, out)),
             "plain_ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv_plain(feats, rb, w)),
             "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe16[idx].view(m, -1), w16)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -208,33 +265,38 @@ def main() -> int:
     if not slab_rows_out:
         raise AssertionError("no conv of the bench plan reaches the slab kernel")
 
-    # fused kernel at the largest fp32 shape it takes (table <= 8 MiB)
-    fused_convs = [c for c in convs
-                   if fused_conv.should_use_fused(c[1].shape[0], 27, c[3], c[4])]
-    name, rb, n, cin, cout, _ = max(fused_convs, key=lambda c: c[1].shape[0] * c[3] * c[4])
-    feats, rb, w = operands(rb, n, cin, cout)
-    got = fused_conv.fused_gather_gemm(feats, rb, w)
-    ref = fused_conv.fused_gather_gemm_plain(feats, rb, w)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not torch.allclose(got, ref, **FUSED_TOL):
-        raise AssertionError(f"fused kernel {name} ({cin}->{cout}): max abs err {err}")
-    n, m = feats.shape[0], rb.shape[0]
-    fe = torch.cat([feats, feats.new_zeros((1, cin))])
-    idx = torch.where(rb >= 0, rb, n).long()
-    w2 = w.reshape(27 * cin, cout)
-    out = torch.empty_like(got)
-    b_ms, b_by = bound(rb, cin, cout, "float32")
-    fused_row = {
-        "conv": name, "cin": cin, "cout": cout, "m": m, "n": n, "max_abs_err": err,
-        "ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm(feats, rb, w)),
-        "kernel_ms": cuda_time_ms(torch, lambda: fused_conv._launch(feats, rb, w, out)),
-        "plain_ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm_plain(feats, rb, w)),
-        "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe[idx].view(m, -1), w2)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    log(f"fused {name} {cin}->{cout} M={m}: {fused_row}")
-    del x, plan, convs, shapes, feats, rb, w, fe, idx, out, got, ref
+    # the fused kernel at each (27, Cin, Cout) the fp32 fused=True forward gives
+    # it (table <= 8 MiB), at its tallest rulebook
+    fused_rows_out = []
+    for (cin, cout), (name, rb, n) in tallest(
+            lambda rb, ci, co, smin: fused_conv.should_use_fused(rb.shape[0], 27, ci, co)):
+        feats, rb, w = operands(rb, n, cin, cout)
+        got = twice_equal(lambda: fused_conv.fused_gather_gemm(feats, rb, w),
+                          f"fused kernel {name}")
+        ref = fused_conv.fused_gather_gemm_plain(feats, rb, w)
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, **FUSED_TOL):
+            raise AssertionError(f"fused kernel {name} ({cin}->{cout}): max abs err {err}")
+        n, m = feats.shape[0], rb.shape[0]
+        fe = torch.cat([feats, feats.new_zeros((1, cin))])
+        idx = torch.where(rb >= 0, rb, n).long()
+        w2 = w.reshape(27 * cin, cout)
+        out = torch.empty_like(got)
+        b_ms, b_by = bound(rb, cin, cout, "float32")
+        row = {
+            "conv": name, "k3": 27, "cin": cin, "cout": cout, "m": m, "n": n,
+            **sparsity(rb), "max_abs_err": err,
+            "ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm(feats, rb, w)),
+            "kernel_ms": cuda_time_ms(torch, lambda: fused_conv._launch(feats, rb, w, out)),
+            "plain_ms": cuda_time_ms(torch, lambda: fused_conv.fused_gather_gemm_plain(feats, rb, w)),
+            "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe[idx].view(m, -1), w2)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        log(f"fused {name} {cin}->{cout} M={m}: {row}")
+        fused_rows_out.append(row)
+    if not fused_rows_out:
+        raise AssertionError("no conv of the bench plan reaches the fused kernel")
+    del x, plan, convs, feats, rb, no_rb, w, fe, fe16, idx, out, got, ref, scratch
 
     # 4. bf16 forward of the bench tree
     n_interior = sum(int(b.mask.sum()) for b in batches)
@@ -259,7 +321,18 @@ def main() -> int:
     for k in ("xyz", "medial_vector", "class_l"):
         if not np.isfinite(getattr(out16, k)).all():
             raise AssertionError(f"bf16 forward: non-finite {k}")
-    log(f"bf16 forwards {times16} s, slab launches {slab_launches}")
+    slab_conv.slab_gather_conv.launches = 0
+    prof = kernel_ms_in(torch, lambda: mi16.forward(cloud),
+                        ("slab_conv_kernel", "slab_weight_fragments"))
+    slab_per_forward = slab_conv.slab_gather_conv.launches
+    slab_forward_ms = sum(ms for ms, _ in prof.values())
+    slab_fragment_ms = prof["slab_weight_fragments"][0]
+    if prof["slab_conv_kernel"][1] != slab_per_forward:
+        raise AssertionError(f"profiler saw {prof['slab_conv_kernel'][1]} slab kernels, "
+                             f"the wrapper counted {slab_per_forward}")
+    log(f"bf16 forwards {times16} s, slab launches {slab_launches}; in one forward "
+        f"{slab_per_forward} launches, {slab_forward_ms:.3f} ms of device time "
+        f"({prof['slab_weight_fragments'][0]:.3f} ms of it the weight-fragment kernel)")
 
     # 5. fp32 forward, fused kernel vs the plain gather + matmul
     mi32f = ModelInference(WEIGHTS, batch_size=4, precision="float32", fused=True)
@@ -290,7 +363,15 @@ def main() -> int:
         raise AssertionError(f"fused vs plain fp32 class agreement {agree_fused}")
     np.testing.assert_array_equal(out16.xyz, out32["xyz"])
     agree_bf16 = float((out16.class_l[:, 0] == cls32).mean())
-    log(f"fp32 fused {time32f:.3f} s, plain {time32:.3f} s, fused launches {fused_launches}")
+    fused_conv.fused_gather_gemm.launches = 0
+    prof = kernel_ms_in(torch, lambda: mi32f.predict(cloud), ("fused_conv_kernel",))
+    fused_per_forward = fused_conv.fused_gather_gemm.launches
+    fused_forward_ms, fused_seen = prof["fused_conv_kernel"]
+    if fused_seen != fused_per_forward:
+        raise AssertionError(f"profiler saw {fused_seen} fused kernels, "
+                             f"the wrapper counted {fused_per_forward}")
+    log(f"fp32 fused {time32f:.3f} s, plain {time32:.3f} s, fused launches {fused_launches}; "
+        f"in one forward {fused_per_forward} launches, {fused_forward_ms:.3f} ms of device time")
 
     # 6. the card against the CPU path on a small tree
     small = CentreCloud()(generate_tree(**SMALL_TREE)[0])
@@ -303,35 +384,36 @@ def main() -> int:
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
-    entries = [
-        {
-            "name": "slab_gather_conv",
-            "route": "cuda",
-            "source": "smart_tree_tpu_torch/csrc/slab_conv.cu",
-            "replaces": "smart_tree_tpu/core/pallas_slab.py:269",
-            "launches": slab_launches,
-            # one call at each (Cin, Cout) the bf16 forward gives the kernel,
-            # summed; per-shape rows under "shapes"
-            "max_abs_err": max(r["max_abs_err"] for r in slab_rows_out),
-            "ms": summed(slab_rows_out, "ms"),
-            "kernel_ms": summed(slab_rows_out, "kernel_ms"),
-            "plain_ms": summed(slab_rows_out, "plain_ms"),
-            "bound_ms": summed(slab_rows_out, "bound_ms"),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in slab_rows_out)
+    def entry(rows, **head):
+        """One kernel's line: one call at each shape the main path gives it,
+        summed; per-shape rows under "shapes"."""
+        return {
+            **head,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": summed(rows, "ms"),
+            "kernel_ms": summed(rows, "kernel_ms"),
+            "plain_ms": summed(rows, "plain_ms"),
+            "bound_ms": summed(rows, "bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
-            "library_ms": summed(slab_rows_out, "library_ms"),
-            "shapes": slab_rows_out,
-        },
-        {
-            "name": "fused_gather_gemm",
-            "route": "cuda",
-            "source": "smart_tree_tpu_torch/csrc/fused_conv.cu",
-            "replaces": "smart_tree_tpu/core/pallas_ops.py:86",
-            "launches": fused_launches,
-            **{k: fused_row[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms")},
-            "shapes": [fused_row],
-        },
+            "library_ms": summed(rows, "library_ms"),
+            "shapes": rows,
+        }
+
+    entries = [
+        entry(slab_rows_out,
+              name="slab_gather_conv", route="cuda",
+              source="smart_tree_tpu_torch/csrc/slab_conv.cu",
+              replaces="smart_tree_tpu/core/pallas_slab.py:269",
+              launches=slab_launches, launches_per_forward=slab_per_forward,
+              forward_kernel_ms=slab_forward_ms,
+              forward_fragment_ms=slab_fragment_ms),
+        entry(fused_rows_out,
+              name="fused_gather_gemm", route="cuda",
+              source="smart_tree_tpu_torch/csrc/fused_conv.cu",
+              replaces="smart_tree_tpu/core/pallas_ops.py:86",
+              launches=fused_launches, launches_per_forward=fused_per_forward,
+              forward_kernel_ms=fused_forward_ms),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({

@@ -4,9 +4,12 @@
     out[M, Cout] = gather(feats U zero row, rb)[M, K3 * Cin] @ W[K3 * Cin, Cout]
 
 for any K3, fp32 with fp32 accumulation, output in the feats dtype. The
-CUDA kernel (csrc/fused_conv.cu) gathers each output tile's rows into shared
-memory one kernel offset at a time and accumulates in registers; see the
-source note there for its design and bound.
+CUDA kernel (csrc/fused_conv.cu) compacts, per 128-row output tile and
+kernel offset, the rows that have a neighbour, gathers only those table rows
+into shared memory with asynchronous copies one pass ahead of the fp32 FMAs
+(a register block of up to 4 rows by 8 columns per thread), and sums into
+the tile's accumulators in shared memory; see the source note there for its
+design and bound.
 
 `fused_gather_gemm` launches the kernel on CUDA tensors and raises on input
 the kernel does not take; on CPU tensors it runs `fused_gather_gemm_plain`
@@ -61,8 +64,11 @@ def _check_cuda(feats, rulebook, weights) -> None:
         or weights.dim() != 3
         or tuple(weights.shape[:2]) != (k3, cin)
         or not weights.is_contiguous()
+        or weights.data_ptr() % 16 != 0
     ):
-        raise ValueError(f"weights must be a contiguous [{k3}, {cin}, Cout] float32 tensor")
+        raise ValueError(
+            f"weights must be a contiguous, 16-byte-aligned [{k3}, {cin}, Cout] float32 tensor"
+        )
     if weights.shape[2] not in (8, 16, 32, 64):
         raise ValueError(f"fused kernel takes Cout in 8/16/32/64 (got {weights.shape[2]})")
 

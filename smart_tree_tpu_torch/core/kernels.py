@@ -32,10 +32,12 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, so ctypes does not
 # cut 64-bit addresses to int
 _SIGNATURES = {
-    # feats, n, cin, rel, starts, nchunks, tiles, weights, cout, out, m, slab, stream
-    "st_slab_conv": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P],
-    # cout -> output rows per CTA
-    "st_slab_conv_tile": [_I],
+    # feats, n, cin, rulebook, m, weights, cout, scratch, out, slab, blk, stream
+    "st_slab_conv": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+    # -> output rows per CTA
+    "st_slab_conv_tile": [],
+    # cin, cout -> bytes of weight-fragment scratch
+    "st_slab_conv_scratch_bytes": [_I, _I],
     # feats, n, cin, rulebook, m, k3, weights, cout, out, stream
     "st_fused_conv": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P],
 }

@@ -5,12 +5,15 @@
 
 Each rulebook column is monotone over the sorted keys, so a tile of
 consecutive output rows reads, per (dx, dy) group of three dz columns, one
-contiguous slab of the table. `_precompute` (plain torch ops, the contract of
-the JAX `_precompute`) gives per tile and group the block-aligned slab start,
-the chunk count, and the slab-relative rulebook; the CUDA kernel
-(csrc/slab_conv.cu) stages each slab in shared memory as bf16 and reads rows
-from it by relative index. See the source note there for its design and
-bound.
+contiguous slab of the table. The CUDA kernel (csrc/slab_conv.cu) takes the
+raw rulebook: a CTA of TILE_ROWS output rows finds each group's slab bounds
+itself (start rounded down to BLOCK_ROWS rows, chunks of `slab_rows(Cin)` rows),
+stages the slab in shared memory as bf16 and feeds the gathered rows to the
+bf16 tensor cores. See the source note there for its design and bound.
+
+`_precompute` (plain torch ops, equal to the JAX `_precompute`) states the
+contract those in-kernel bounds follow; `slab_gather_conv_tiled` is a torch-op
+emulation of the kernel's tile walk. Both serve the tests only.
 
 `slab_gather_conv` launches the kernel on CUDA tensors and raises on input
 the kernel does not take; on CPU tensors it runs `slab_gather_conv_plain`,
@@ -24,8 +27,15 @@ import torch
 
 from . import kernels
 
-SLAB_ROWS = 512  # table rows per staged slab chunk
-BLOCK_ROWS = 32  # slab starts are rounded down to this many rows
+TILE_ROWS = 128  # output rows per CTA, whatever Cout is (kTile in the source)
+BLOCK_ROWS = 8  # slab starts are rounded down to this many rows
+
+
+def slab_rows(cin: int) -> int:
+    """Table rows per staged slab chunk: 256, and 128 past Cin 32, where the
+    smaller staging buffers measured faster on the H100 (two CTAs share an
+    SM's shared memory up to Cout 32)."""
+    return 256 if cin <= 32 else 128
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -95,38 +105,93 @@ def _check_cuda(feats, rulebook, weights) -> None:
         or rulebook.dim() != 2
         or rulebook.shape[1] != 27
         or not rulebook.is_contiguous()
+        or rulebook.data_ptr() % 16 != 0
     ):
-        raise ValueError("rulebook must be a contiguous [M, 27] int32 tensor")
+        raise ValueError("rulebook must be a contiguous, 16-byte-aligned [M, 27] int32 tensor")
     if (
         weights.dtype != torch.float32
         or weights.dim() != 3
         or tuple(weights.shape[:2]) != (27, cin)
         or not weights.is_contiguous()
+        or weights.data_ptr() % 16 != 0
     ):
         raise ValueError(f"weights must be a contiguous [27, {cin}, Cout] float32 tensor")
     if weights.shape[2] not in (8, 16, 32, 64):
         raise ValueError(f"slab kernel takes Cout in 8/16/32/64 (got {weights.shape[2]})")
 
 
-def _launch(feats, rel, starts, nchunks, tiles, weights, out, slab) -> None:
-    """One launch of the CUDA kernel on precomputed inputs (counts nothing)."""
+def _tile_bounds(rb_tile: torch.Tensor, blk: int):
+    """Slab bounds of one tile as the kernel derives them from the raw
+    rulebook rows: per (dx, dy) group the first referenced table row rounded
+    down to `blk`, and the rows spanned up to the last referenced one (0 for
+    a group without a valid entry). rb_tile [rows, 27] -> two lists of 9."""
+    starts, spans = [], []
+    for g in range(9):
+        e = rb_tile[:, 3 * g : 3 * g + 3]
+        e = e[e >= 0]
+        if e.numel() == 0:
+            starts.append(0)
+            spans.append(0)
+            continue
+        start = int(e.min()) // blk * blk
+        starts.append(start)
+        spans.append(int(e.max()) - start + 1)
+    return starts, spans
+
+
+def slab_gather_conv_tiled(
+    feats: torch.Tensor,
+    rulebook: torch.Tensor,
+    weights: torch.Tensor,
+    tile: int = TILE_ROWS,
+    slab: int = 256,
+    blk: int = BLOCK_ROWS,
+) -> torch.Tensor:
+    """Torch-op emulation of the CUDA kernel's tile walk, for the tests: per
+    tile the slab bounds from the raw rulebook, per group and chunk a slab
+    of the table rounded to bf16, rows gathered from it by relative index
+    (a zero row for misses and for entries outside the chunk), bf16 weights,
+    fp32 sum. Nothing on the main path calls it."""
+    n, cin = feats.shape
+    m = rulebook.shape[0]
+    cout = weights.shape[-1]
+    w = _bf16(weights.float()).reshape(9, 3 * cin, cout)
+    zero = feats.new_zeros((1, cin), dtype=torch.float32)
+    out = feats.new_zeros((m, cout), dtype=torch.float32)
+    for r0 in range(0, m, tile):
+        rb_t = rulebook[r0 : r0 + tile]
+        starts, spans = _tile_bounds(rb_t, blk)
+        acc = out[r0 : r0 + tile]
+        for g in range(9):
+            e = rb_t[:, 3 * g : 3 * g + 3].long()
+            for c in range(-(-spans[g] // slab)):
+                base = starts[g] + c * slab
+                rows = min(slab, spans[g] - c * slab, n - base)
+                staged = torch.cat([_bf16(feats[base : base + rows].float()), zero])
+                rel = e - base
+                ok = (e >= 0) & (rel >= 0) & (rel < rows)
+                a = staged[torch.where(ok, rel, rows)].reshape(-1, 3 * cin)
+                acc += a @ w[g]
+    return out
+
+
+def _launch(feats, rulebook, weights, scratch, out) -> None:
+    """One launch of the CUDA kernel on the raw rulebook (counts nothing)."""
     lib = kernels.load()
     n, cin = feats.shape
     rc = lib.st_slab_conv(
-        feats.data_ptr(), n, cin, rel.data_ptr(), starts.data_ptr(),
-        nchunks.data_ptr(), tiles, weights.data_ptr(), weights.shape[2],
-        out.data_ptr(), out.shape[0], slab,
-        torch.cuda.current_stream(feats.device).cuda_stream,
+        feats.data_ptr(), n, cin, rulebook.data_ptr(), rulebook.shape[0],
+        weights.data_ptr(), weights.shape[2], scratch.data_ptr(), out.data_ptr(),
+        slab_rows(cin), BLOCK_ROWS, torch.cuda.current_stream(feats.device).cuda_stream,
     )
     kernels.check(rc, "st_slab_conv")
 
 
-def prepare(rulebook: torch.Tensor, cout: int):
-    """`_precompute` at the kernel's tile for this Cout: (rel, starts in
-    table rows, nchunks, tiles)."""
-    tile = kernels.load().st_slab_conv_tile(cout)
-    rel, starts_b, nchunks, tiles = _precompute(rulebook, tile, SLAB_ROWS, BLOCK_ROWS)
-    return rel, (starts_b * BLOCK_ROWS).contiguous(), nchunks.contiguous(), tiles
+def _scratch(weights: torch.Tensor) -> torch.Tensor:
+    """Room for the kernel's bf16 weight fragments."""
+    _, cin, cout = weights.shape
+    nbytes = kernels.load().st_slab_conv_scratch_bytes(cin, cout)
+    return torch.empty(nbytes, dtype=torch.uint8, device=weights.device)
 
 
 def slab_gather_conv(
@@ -147,8 +212,7 @@ def slab_gather_conv(
     out = torch.empty((m, weights.shape[2]), dtype=torch.float32, device=feats.device)
     if m == 0:
         return out
-    rel, starts, nchunks, tiles = prepare(rulebook, weights.shape[2])
-    _launch(feats, rel, starts, nchunks, tiles, weights, out, SLAB_ROWS)
+    _launch(feats, rulebook, weights, _scratch(weights), out)
     slab_gather_conv.launches += 1
     return out
 

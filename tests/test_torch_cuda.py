@@ -66,37 +66,90 @@ def _with_table(rb):
     return rb, int(rb.max()) + 1
 
 
-SLAB_CASES = {
-    # name: (rulebook maker (rng) -> (rb, n), cin, cout)
-    "monotone-8-8": (lambda r: (_monotone(r, 700, 900), 900), 8, 8),
-    "monotone-16-16": (lambda r: (_monotone(r, 1000, 1200), 1200), 16, 16),
-    "monotone-64-32": (lambda r: (_monotone(r, 400, 500), 500), 64, 32),
-    "monotone-32-64": (lambda r: (_monotone(r, 300, 400), 400), 32, 64),
-    "multi-chunk": (lambda r: (_spread(r, 512, 4 * 1024 + 37), 4 * 1024 + 37), 8, 8),
-    "ragged-empty": (lambda r: (np.concatenate([_monotone(r, 300, 600),
-                                                np.full((423, 27), -1, np.int32)]), 600), 8, 16),
-    "plan-subm": (lambda r: _with_table(_plan_rulebook("subm")), 16, 8),
-    "plan-down": (lambda r: _with_table(_plan_rulebook("down")), 8, 16),
-    "plan-up": (lambda r: _with_table(_plan_rulebook("up")), 32, 16),
+def _edges(rng):
+    """M not a multiple of the tile, a group that is empty in every tile, an
+    all-missing tile in the middle, and an entry equal to N - 1."""
+    n, m = 700, 3 * slab_conv.TILE_ROWS + 37
+    rb = _monotone(rng, m, n)
+    rb[:, 6:9] = -1
+    rb[slab_conv.TILE_ROWS : 2 * slab_conv.TILE_ROWS] = -1
+    rb[-1, 26] = n - 1
+    return rb, n
+
+
+SLAB_RULEBOOKS = {
+    # name: rng -> (rulebook, table rows)
+    "monotone": lambda r: (_monotone(r, 1000, 1200), 1200),
+    "multi-chunk": lambda r: (_spread(r, 512, 4 * 1024 + 37), 4 * 1024 + 37),
+    "ragged-empty": lambda r: (np.concatenate([_monotone(r, 300, 600),
+                                               np.full((423, 27), -1, np.int32)]), 600),
+    "edges": _edges,
+    "plan-subm": lambda r: _with_table(_plan_rulebook("subm")),
+    "plan-down": lambda r: _with_table(_plan_rulebook("down")),
+    "plan-up": lambda r: _with_table(_plan_rulebook("up")),
 }
 
 
-@pytest.mark.parametrize("name", sorted(SLAB_CASES))
-def test_slab_kernel_matches_plain(cuda, name):
-    make, cin, cout = SLAB_CASES[name]
+def _slab_operands(cuda, name, cin, cout):
     rng = np.random.default_rng(0)
-    rb, n = make(rng)
+    rb, n = SLAB_RULEBOOKS[name](rng)
     feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda)
     w = torch.from_numpy(
         (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32)
     ).to(cuda)
-    rb = torch.from_numpy(rb).to(cuda)
+    return feats, torch.from_numpy(rb).to(cuda), w
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32, 64])
+@pytest.mark.parametrize("cin", [8, 16, 32, 64])
+@pytest.mark.parametrize("name", sorted(SLAB_RULEBOOKS))
+def test_slab_kernel_matches_plain(cuda, name, cin, cout):
+    feats, rb, w = _slab_operands(cuda, name, cin, cout)
     launches = slab_conv.slab_gather_conv.launches
     got = slab_conv.slab_gather_conv(feats, rb, w)
     torch.cuda.synchronize()
     assert slab_conv.slab_gather_conv.launches == launches + 1
     ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=2e-4)
+    empty = (rb < 0).all(dim=1)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("cin,cout", [(24, 16), (40, 8), (56, 64)])
+def test_slab_kernel_odd_slice_counts(cuda, cin, cout):
+    # Cin / 8 odd: the group's last k16 step is padded with a zero slice
+    feats, rb, w = _slab_operands(cuda, "edges", cin, cout)
+    got = slab_conv.slab_gather_conv(feats, rb, w)
+    ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=2e-4)
+
+
+def test_slab_kernel_matches_tiled_emulation(cuda):
+    feats, rb, w = _slab_operands(cuda, "multi-chunk", 16, 16)
+    got = slab_conv.slab_gather_conv(feats, rb, w).cpu()
+    emu = slab_conv.slab_gather_conv_tiled(feats.cpu(), rb.cpu(), w.cpu(),
+                                           slab=slab_conv.slab_rows(16))
+    np.testing.assert_allclose(got.numpy(), emu.numpy(), atol=2e-4)
+
+
+def test_kernels_are_deterministic(cuda):
+    feats, rb, w = _slab_operands(cuda, "plan-subm", 32, 32)
+    assert torch.equal(slab_conv.slab_gather_conv(feats, rb, w),
+                       slab_conv.slab_gather_conv(feats, rb, w))
+    assert torch.equal(fused_conv.fused_gather_gemm(feats, rb, w),
+                       fused_conv.fused_gather_gemm(feats, rb, w))
+
+
+def _fused_operands(cuda, n, m, k3, cin, cout, missing_rows=()):
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda)
+    rb = rng.integers(-1, n, size=(m, k3)).astype(np.int32)
+    for r in missing_rows:
+        rb[r] = -1
+    w = torch.from_numpy(
+        (rng.normal(size=(k3, cin, cout)) / np.sqrt(k3 * cin)).astype(np.float32)
+    ).to(cuda)
+    return feats, torch.from_numpy(rb).to(cuda), w
 
 
 FUSED_SHAPES = [
@@ -106,23 +159,36 @@ FUSED_SHAPES = [
     (64, 100, 8, 16, 32),
     (40, 50, 1, 4, 8),
     (5000, 3000, 27, 64, 64),
+    (3000, 2000, 27, 128, 64),
+    (3000, 1000, 8, 128, 32),
+    (900, 333, 1, 64, 16),
+    (700, 129, 8, 4, 64),
+    (2000, 1500, 27, 4, 32),
+    (50, 17, 27, 8, 8),
 ]
 
 
 @pytest.mark.parametrize("n,m,k3,cin,cout", FUSED_SHAPES)
 def test_fused_kernel_matches_plain(cuda, n, m, k3, cin, cout):
-    rng = np.random.default_rng(4)
-    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda)
-    rb = torch.from_numpy(rng.integers(-1, n, size=(m, k3)).astype(np.int32)).to(cuda)
-    w = torch.from_numpy(
-        (rng.normal(size=(k3, cin, cout)) / np.sqrt(k3 * cin)).astype(np.float32)
-    ).to(cuda)
+    feats, rb, w = _fused_operands(cuda, n, m, k3, cin, cout)
     launches = fused_conv.fused_gather_gemm.launches
     got = fused_conv.fused_gather_gemm(feats, rb, w)
     torch.cuda.synchronize()
     assert fused_conv.fused_gather_gemm.launches == launches + 1
     ref = fused_conv.fused_gather_gemm_plain(feats, rb, w)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("k3,cin,cout", [(1, 4, 8), (8, 8, 16), (27, 64, 32), (27, 128, 64)])
+def test_fused_kernel_all_missing_rows(cuda, k3, cin, cout):
+    # whole tiles, single rows and the ragged last tile without a neighbour
+    m = 3 * 128 + 19
+    missing = list(range(128, 256)) + [0, 300, m - 1]
+    feats, rb, w = _fused_operands(cuda, 500, m, k3, cin, cout, missing_rows=missing)
+    got = fused_conv.fused_gather_gemm(feats, rb, w)
+    ref = fused_conv.fused_gather_gemm_plain(feats, rb, w)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert bool((got[missing] == 0).all())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -135,3 +201,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # Cout 12
         fused_conv.fused_gather_gemm(feats[:, :8].contiguous(), rb,
                                      torch.zeros((27, 8, 12), device=cuda))
+    f8 = feats[:, :8].contiguous()
+    with pytest.raises(ValueError):  # Cin 72 is past the slab kernel's 64
+        slab_conv.slab_gather_conv(torch.zeros((10, 72), device=cuda), rb,
+                                   torch.zeros((27, 72, 8), device=cuda))
+    with pytest.raises(ValueError):  # 26 columns
+        slab_conv.slab_gather_conv(f8, rb[:, :26].contiguous(),
+                                   torch.zeros((27, 8, 8), device=cuda))
+    with pytest.raises(ValueError):  # int64 rulebook
+        slab_conv.slab_gather_conv(f8, rb.long(), torch.zeros((27, 8, 8), device=cuda))
+    with pytest.raises(ValueError):  # weights on the CPU
+        fused_conv.fused_gather_gemm(f8, rb, torch.zeros((27, 8, 8)))
+    with pytest.raises(ValueError):  # Cin 132 is past the fused kernel's 128
+        fused_conv.fused_gather_gemm(torch.zeros((10, 132), device=cuda), rb,
+                                     torch.zeros((27, 132, 8), device=cuda))

@@ -6,7 +6,10 @@ Tolerance: both sides round the operands to bf16 and accumulate in fp32, so
 they differ only in fp32 summation order: atol 2e-4 at these magnitudes
 (inputs N(0,1), up to 27 * 64 terms). The CUDA kernel is held against the
 plain version on the card (tests/test_torch_cuda.py, and chip_smoke.py at
-the bench shapes).
+the bench shapes). `slab_gather_conv_tiled`, the torch-op emulation of that
+kernel's tile walk (slab bounds from the raw rulebook, chunked slabs, zero
+row for misses), is held to the same tolerance here, and its bounds to
+`_precompute` at the kernel's tile, slab and alignment.
 """
 
 import jax.numpy as jnp
@@ -150,8 +153,8 @@ def test_plain_matches_jax_slab(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 @pytest.mark.parametrize(
     "tile,slab",
-    [(jslab._TILE_T, jslab._SLAB_S), (64, 256)],
-    ids=["tpu-tile", "small-tile"],
+    [(jslab._TILE_T, jslab._SLAB_S), (64, 256), (tslab.TILE_ROWS, 256), (tslab.TILE_ROWS, 128)],
+    ids=["tpu-tile", "small-tile", "hopper-tile", "hopper-tile-wide-cin"],
 )
 def test_precompute_matches_jax(name, tile, slab):
     _, rb, _ = _inputs(name)
@@ -174,3 +177,65 @@ def test_cpu_wrapper_takes_plain_version():
     )
     assert tslab.slab_gather_conv.launches == launches  # no kernel on the CPU
 
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tiled_emulation_matches_plain_and_jax(name):
+    feats, rb, w = _inputs(name)
+    args = (torch.from_numpy(feats), torch.from_numpy(rb), torch.from_numpy(w))
+    got = tslab.slab_gather_conv_tiled(*args, slab=tslab.slab_rows(feats.shape[1])).numpy()
+    np.testing.assert_allclose(got, tslab.slab_gather_conv_plain(*args).numpy(), atol=ATOL)
+    jax_out = np.asarray(
+        jslab.slab_gather_conv(jnp.asarray(feats), jnp.asarray(rb), jnp.asarray(w),
+                               interpret=True)
+    )
+    np.testing.assert_allclose(got, jax_out, atol=ATOL)
+    empty = np.all(rb < 0, axis=1)
+    assert np.all(got[empty] == 0)
+
+
+@pytest.mark.parametrize("slab", [64, 128, 256])
+def test_tiled_emulation_chunks_accumulate(slab):
+    # slabs far shorter than the spans: every group walks several chunks
+    feats, rb, w = _inputs("multi-chunk")
+    args = (torch.from_numpy(feats), torch.from_numpy(rb), torch.from_numpy(w))
+    got = tslab.slab_gather_conv_tiled(*args, slab=slab).numpy()
+    np.testing.assert_allclose(got, tslab.slab_gather_conv_plain(*args).numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tile_bounds_match_precompute(name):
+    """The bounds the kernel derives per tile from the raw rulebook are
+    `_precompute`'s starts, chunk counts and relative rows."""
+    _, rb, _ = _inputs(name)
+    tile, blk = tslab.TILE_ROWS, tslab.BLOCK_ROWS
+    slab = tslab.slab_rows(8)
+    rb_t = torch.from_numpy(rb)
+    rel, starts_b, nchunks, tiles = tslab._precompute(rb_t, tile, slab, blk)
+    assert tiles == -(-rb.shape[0] // tile)
+    for t in range(tiles):
+        rows = rb_t[t * tile : (t + 1) * tile]
+        starts, spans = tslab._tile_bounds(rows, blk)
+        assert [s // blk for s in starts] == starts_b[t].tolist()
+        assert [-(-s // slab) for s in spans] == nchunks[t].tolist()
+        for g in range(9):
+            e = rows[:, 3 * g : 3 * g + 3]
+            want = torch.where(e >= 0, e - starts[g], -1)
+            got = rel[t * tile : t * tile + len(rows), 3 * g : 3 * g + 3]
+            assert torch.equal(got, want.to(torch.int32))
+
+
+def test_tiled_emulation_edges():
+    # an entry equal to N - 1, a slab that ends at N, a tile with an empty
+    # group, M not a multiple of the tile
+    rng = np.random.default_rng(7)
+    n, m, cin, cout = 300, tslab.TILE_ROWS + 5, 8, 8
+    rb = _monotone_rulebook(rng, m, n)
+    rb[:, 3:6] = -1          # group 1 empty in every tile
+    rb[-1, 26] = n - 1
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(27, cin, cout)).astype(np.float32))
+    rb_t = torch.from_numpy(rb)
+    got = tslab.slab_gather_conv_tiled(feats, rb_t, w).numpy()
+    np.testing.assert_allclose(got, tslab.slab_gather_conv_plain(feats, rb_t, w).numpy(),
+                               atol=ATOL)
