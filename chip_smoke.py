@@ -25,9 +25,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      plain forward on the card; class agreement with the bf16 forward; one
      more fused forward under torch.profiler, as in 4;
   6. fp32 forward on the card against the CPU forward on a small tree (the
-     CPU path is the one the tests hold against the JAX package).
-Then one line {"kernels": [...]}, the forward times, and as the last line
-{"ok": true, "device": {...}}.
+     CPU path is the one the tests hold against the JAX package);
+  7. the skeleton stages on the card against the CPU on the small tree's
+     branch points with their ground-truth medial vectors: outlier filter,
+     cell reduction, KNN graph, components, SSSP, root distances, and
+     Skeletonizer.forward as a whole;
+  8. the whole pipeline on the bench tree (the default configuration but
+     bf16 and the batch capacity cap): Pipeline.process_cloud into a
+     temporary directory, one warm-up and one timed run; the slab kernel
+     must have launched inside it, the skeleton must have branches, and the
+     four PLYs must hold the counts the skeleton implies;
+  9. the default configuration (fp32) on the small tree through Pipeline,
+     the card against the CPU.
+Then one line {"kernels": [...]}, the forward times, one line with the
+pipeline's stage times, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +64,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SLAB_ATOL = 2e-4   # bf16 operands on both sides: fp32 summation order only
 FUSED_TOL = dict(rtol=1e-4, atol=1e-5)   # fp32 both sides
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)   # the tests' model tolerance
+WEIGHT_RTOL = 1e-6                       # exactly recomputed KNN distances: 1 ulp
+DIST_TOL = dict(rtol=1e-5, atol=1e-6)    # fp32 path sums, min-reduced in another order
+GEOM_TOL = dict(rtol=1e-5, atol=1e-6)    # branch vertices are gathered medial points
+# fp32 predictions differ between the card and the CPU within MODEL_TOL, which
+# can move a medial point across a cell border: whole-pipeline skeletons are
+# held to the same branch counts and to their total length
+PIPELINE_LENGTH_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -128,6 +147,68 @@ def unet_convs(plan, planes):
                     (f"L{lvl}.Tail.0", lv.subm_rb, lvl, 2 * c, c),
                     (f"L{lvl}.Tail.3", lv.subm_rb, lvl, c, c)]
     return out
+
+
+def skeleton_stages(torch, cloud, device):
+    """Every stage of the skeletonizer's front and graph halves on `device`,
+    with the default settings: a dict of numpy arrays."""
+    from smart_tree_tpu_torch.graph import (build_neighbor_table, chain_shortcut_table,
+                                            component_sizes, connected_components,
+                                            sssp_multi, tree_distances)
+    from smart_tree_tpu_torch.skeleton.filter import outlier_removal
+    from smart_tree_tpu_torch.skeleton.graph import nn_graph
+    from smart_tree_tpu_torch.skeleton.quantize import medial_reduce
+    from smart_tree_tpu_torch.skeleton.skeletonize import _component_roots, _select_components
+
+    def up(a):
+        return torch.from_numpy(a.astype("float32")).to(device)
+
+    k = 16
+    pts, radii, xyz = up(cloud.medial_pts), up(cloud.radius), up(cloud.xyz)
+    keep = outlier_removal(pts, radii, nb_points=8, min_radius=0.02)
+    rep, n = medial_reduce(pts, xyz[:, 1], keep, 0.01)
+    pts, radii, y = pts[rep], radii[rep], xyz[rep, 1]
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    graph = nn_graph(pts, radii.clamp_min(0.02), k=k, valid=valid)
+    sct = chain_shortcut_table(graph.edges[:, 1].reshape(n, k), graph.weights.reshape(n, k),
+                               graph.valid.reshape(n, k))
+    table = build_neighbor_table(graph.edges, graph.weights, graph.valid, n, cap=4 * k)
+    labels = connected_components(graph.edges, graph.valid, n, vertex_valid=valid,
+                                  table=table, shortcut_tbl=sct)
+    comp_ids = _select_components(component_sizes(labels, valid), 32, 64)
+    roots = _component_roots(labels, valid, y, comp_ids)
+    dist, preds = sssp_multi(graph.edges, graph.weights, graph.valid, roots, n,
+                             shortcut_tbl=sct, table=table)
+    hop = pts - pts[preds.clamp_min(0)]
+    root_dist = tree_distances(preds, (hop * hop).sum(dim=1).sqrt(), n)
+    out = dict(keep=keep, rep=rep, edges=graph.edges, edge_valid=graph.valid,
+               weights=graph.weights, labels=labels, comp_ids=comp_ids, roots=roots,
+               dist=dist, preds=preds, root_dist=root_dist)
+    return {name: t.cpu().numpy() for name, t in out.items()}
+
+
+def same_skeletons(np, got, ref, what, tol=None):
+    """Equal skeleton and branch counts and parents; with `tol`, allclose
+    branch xyz and radii as well."""
+    if len(got.skeletons) != len(ref.skeletons):
+        raise AssertionError(f"{what}: {len(got.skeletons)} skeletons against "
+                             f"{len(ref.skeletons)}")
+    for a, b in zip(got.skeletons, ref.skeletons):
+        if len(a.branches) != len(b.branches):
+            raise AssertionError(f"{what}: skeleton {a._id} has {len(a.branches)} branches "
+                                 f"against {len(b.branches)}")
+        if tol is None:
+            continue
+        for key, x in a.branches.items():
+            y = b.branches[key]
+            if x.parent_id != y.parent_id:
+                raise AssertionError(f"{what}: branch {key} parent {x.parent_id} != {y.parent_id}")
+            np.testing.assert_allclose(x.xyz, y.xyz, **tol, err_msg=f"{what} branch {key} xyz")
+            np.testing.assert_allclose(x.radii, y.radii, **tol, err_msg=f"{what} branch {key} radii")
+
+
+def skeleton_length(skeleton) -> float:
+    return sum(s.length for s in skeleton.skeletons)
 
 
 def main() -> int:
@@ -381,6 +462,92 @@ def main() -> int:
     for k in ("radius", "direction", "class_logits"):
         np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=k)
 
+    # 7. the skeleton stages, the card against the CPU
+    from smart_tree_tpu_torch.data.file import ply_element_counts
+    from smart_tree_tpu_torch.scripts.profile_pipeline import bench_pipeline, timed_run
+    from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
+    from smart_tree_tpu_torch.utils.configs import default_pipeline_config, instantiate
+
+    small_raw = generate_tree(**SMALL_TREE)[0]
+    small_branch = small_raw.filter_by_class([0])
+    on_card = skeleton_stages(torch, small_branch, dev)
+    on_cpu = skeleton_stages(torch, small_branch, torch.device("cpu"))
+    for name in ("keep", "rep", "edges", "edge_valid", "labels", "comp_ids", "roots", "preds"):
+        np.testing.assert_array_equal(on_card[name], on_cpu[name], err_msg=f"stage {name}")
+    ev = on_cpu["edge_valid"]
+    np.testing.assert_allclose(on_card["weights"][ev], on_cpu["weights"][ev], rtol=WEIGHT_RTOL,
+                               err_msg="stage weights")
+    for name in ("dist", "root_dist"):
+        fin = np.isfinite(on_cpu[name])
+        np.testing.assert_array_equal(np.isfinite(on_card[name]), fin, err_msg=f"stage {name}")
+        np.testing.assert_allclose(on_card[name][fin], on_cpu[name][fin], **DIST_TOL,
+                                   err_msg=f"stage {name}")
+    sk_card = Skeletonizer().forward(small_branch)
+    sk_cpu = Skeletonizer(device="cpu").forward(small_branch)
+    if not sk_cpu.skeletons or len(sk_cpu.skeletons[0].branches) < 2:
+        raise AssertionError("the small tree gave no skeleton on the CPU")
+    same_skeletons(np, sk_card, sk_cpu, "Skeletonizer.forward card vs cpu", GEOM_TOL)
+    log(f"skeleton stages agree: {int(on_cpu['keep'].sum())} kept of {len(small_branch)}, "
+        f"{len(on_cpu['rep'])} vertices, {len(sk_cpu.skeletons[0].branches)} branches")
+
+    # 8. the whole pipeline on the bench tree, bf16, PLYs into a temporary directory
+    raw_cloud = generate_tree(**BENCH_TREE)[0]
+    with tempfile.TemporaryDirectory() as out_dir:
+        pipeline = bench_pipeline(out_dir)
+        timed_run(pipeline, raw_cloud)  # warm-up (raises hop_cap if the strict check asks)
+        slab_conv.slab_gather_conv.launches = 0
+        fused_conv.fused_gather_gemm.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        pipe_stats, skeleton = timed_run(pipeline, raw_cloud)
+        pipe_slab_launches = slab_conv.slab_gather_conv.launches
+        pipe_stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if pipe_slab_launches == 0:
+            raise AssertionError("the bf16 pipeline never launched the slab kernel")
+        branches = [b for sk in skeleton.skeletons for b in sk.branches.values()]
+        if not skeleton.skeletons or max(len(sk.branches) for sk in skeleton.skeletons) < 2:
+            raise AssertionError("the pipeline gave no skeleton with two branches")
+        for b in branches:
+            if not (np.isfinite(b.xyz).all() and np.isfinite(b.radii).all()):
+                raise AssertionError(f"branch {b._id}: non-finite geometry")
+        drawn = [len(b) for b in branches if len(b) >= 2]
+        expected = {
+            "skeleton.ply": {"vertex": sum(drawn), "edge": sum(n - 1 for n in drawn)},
+            "mesh.ply": {"vertex": 10 * sum(drawn), "face": 20 * sum(n - 1 for n in drawn)},
+            "cloud.ply": {"vertex": n_interior},
+            "seg_cld.ply": {"vertex": n_interior},
+        }
+        for name, counts in expected.items():
+            found = ply_element_counts(Path(out_dir) / name)
+            if found != counts:
+                raise AssertionError(f"{name}: elements {found}, the skeleton implies {counts}")
+            size = (Path(out_dir) / name).stat().st_size
+            if size < 12 * counts["vertex"]:
+                raise AssertionError(f"{name}: {size} bytes is short of its vertices")
+    pipe_stats.update(card=card, points=len(raw_cloud), slab_launches=pipe_slab_launches,
+                      skeleton_length_m=skeleton_length(skeleton),
+                      ply_elements=expected)
+    log(f"pipeline: {pipe_stats}")
+
+    # 9. the default configuration (fp32) on the small tree, the card against the CPU
+    skeletons9 = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for where in ("cuda", "cpu"):
+            cfg = default_pipeline_config()
+            cfg["model_inference"].update(weights_path=str(WEIGHTS), device=where)
+            cfg["skeletonizer"]["device"] = where
+            cfg["save_path"] = str(Path(out_dir) / where)
+            skeletons9[where] = instantiate(cfg).process_cloud(cloud=small_raw)
+            for name in ("skeleton.ply", "mesh.ply", "cloud.ply", "seg_cld.ply"):
+                if not (Path(out_dir) / where / name).is_file():
+                    raise AssertionError(f"default pipeline on {where}: {name} not written")
+    same_skeletons(np, skeletons9["cuda"], skeletons9["cpu"], "default pipeline card vs cpu")
+    len_card, len_cpu = (skeleton_length(skeletons9[w]) for w in ("cuda", "cpu"))
+    if not len_cpu > 0 or abs(len_card - len_cpu) > PIPELINE_LENGTH_RTOL * len_cpu:
+        raise AssertionError(f"default pipeline: skeleton length {len_card} m on the card, "
+                             f"{len_cpu} m on the CPU")
+    log(f"default pipeline card vs cpu: {len(skeletons9['cpu'].skeletons)} skeletons, "
+        f"length {len_card:.4f} / {len_cpu:.4f} m")
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -430,6 +597,7 @@ def main() -> int:
         "class_agreement_fused_vs_plain_fp32": agree_fused,
         "class_agreement_bf16_vs_fp32": agree_bf16,
     }), flush=True)
+    print(json.dumps({"pipeline": pipe_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

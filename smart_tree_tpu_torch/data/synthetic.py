@@ -3,38 +3,17 @@
 surface points sampled on its tubes with exact medial vectors, plus optional
 foliage (class 1) around branch tips. The same seed gives the same cloud as
 the JAX package, bit for bit.
-
-`BranchSkeleton` and `TreeSkeleton` here hold only the fields the generator
-fills; the full skeleton types come with the skeletonizer.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
 
+from .branch import BranchSkeleton
 from .cloud import Cloud
-
-
-@dataclass
-class BranchSkeleton:
-    _id: int
-    parent_id: int
-    xyz: np.ndarray    # [N,3] float32
-    radii: np.ndarray  # [N,1] float32
-
-    def __post_init__(self):
-        self.xyz = np.asarray(self.xyz, np.float32)
-        radii = np.asarray(self.radii, np.float32)
-        self.radii = radii[:, None] if radii.ndim == 1 else radii
-
-
-@dataclass
-class TreeSkeleton:
-    _id: int
-    branches: Dict[int, BranchSkeleton]
+from .tree import TreeSkeleton
 
 
 def _unit(v):

@@ -1,13 +1,14 @@
 """Model inference: block-tiled, bucketed sparse-UNet forward.
 
 Counterpart of `smart_tree_tpu/infer/inference.py::ModelInference` on its
-full-download, single-device path (`compact_transfers=False,
-medial_classes=None`): each batch uploads int16 voxel coords plus fp16
-residuals (xyz is rebuilt on the device, as in the JAX package), builds the
-plan, runs SmartTree, and retries a batch with counts-driven level
+full-download, single-device path (`compact_transfers=False`): each batch
+uploads int16 voxel coords plus fp16 residuals (xyz is rebuilt on the
+device, as in the JAX package), builds the plan, runs SmartTree, and retries a batch with counts-driven level
 capacities when a level overflowed. Unlike the JAX path, predictions come
 back at full precision (fp32 radius, direction and class logits) instead of
-fp16 / int8.
+fp16 / int8. `medial_classes` has the JAX package's meaning (rows of any
+other class come back with medial_vector = 0) but is applied on the host
+after the download; the culled transfer itself is not ported.
 
 The forward runs eagerly; `precision` ("float32" or "bfloat16") and the
 batch capacity reach every conv as arguments (core/sparse_ops.py). With
@@ -18,7 +19,7 @@ kernel, like the JAX package under SMART_TREE_TPU_PALLAS=1.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,13 +72,15 @@ class ModelInference:
         precision: str = "float32",
         level_capacity_factor: float = 0.5,
         fused: bool = False,
+        medial_classes: Sequence[int] | None = None,
         device: str | torch.device | None = None,
     ):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # fp32 products must be fp32: TF32 keeps ~3 decimal digits
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device)  # TF32 off on a card
+        # classes whose medial vector later stages consume; None (or an empty
+        # sequence) keeps every row's
+        self.medial_classes = (
+            tuple(int(c) for c in medial_classes) if medial_classes else None
+        )
         self.voxel_size = voxel_size
         self.block_size = block_size
         self.buffer_size = buffer_size
@@ -190,12 +193,17 @@ class ModelInference:
 
     def forward(self, cloud: Cloud) -> Cloud:
         """Cloud of interior voxels with medial_vector = exp(radius) *
-        direction and the argmax class."""
+        direction and the argmax class; with `medial_classes`, rows of any
+        other class have medial_vector = 0."""
         p = self.predict(cloud)
+        cls = np.argmax(p["class_logits"], axis=1)
+        medial_vector = np.exp(p["radius"]) * p["direction"]
+        if self.medial_classes is not None:
+            medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
         return Cloud(
             xyz=p["xyz"],
             rgb=p["rgb"],
-            medial_vector=np.exp(p["radius"]) * p["direction"],
-            class_l=np.argmax(p["class_logits"], axis=1).reshape(-1, 1).astype(np.float32),
+            medial_vector=medial_vector,
+            class_l=cls.reshape(-1, 1).astype(np.float32),
             filename=cloud.filename,
         )

@@ -1,0 +1,138 @@
+"""Pipeline orchestrator: cloud in -> skeleton out (counterpart of
+`smart_tree_tpu/infer/pipeline.py`, same constructor keys and processing
+order): preprocess -> NN inference -> class filter -> skeletonize -> prune /
+repair / smooth -> save. The interactive views are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ..data.cloud import Cloud
+from ..data.file import load_cloud, save_ply_cloud, save_ply_lineset, save_ply_mesh
+from ..data.tree import DisjointTreeSkeleton
+from ..device import resolve_device
+from ..skeleton.skeletonize import Skeletonizer
+from .inference import ModelInference
+
+log = logging.getLogger(__name__)
+
+
+class Pipeline:
+    def __init__(
+        self,
+        preprocessing,
+        model_inference: ModelInference,
+        skeletonizer: Skeletonizer,
+        repair_skeletons: bool = False,
+        smooth_skeletons: bool = False,
+        smooth_kernel_size: int = 0,
+        prune_skeletons: bool = False,
+        min_skeleton_radius: float = 0.0,
+        min_skeleton_length: float = 1000.0,
+        view_model_output: bool = False,
+        view_skeletons: bool = False,
+        save_outputs: bool = False,
+        save_path: str = "/",
+        branch_classes=(0,),
+        cmap=((1, 0, 0), (0, 1, 0)),
+    ):
+        # both stages' devices are checked, and TF32 switched off on a card,
+        # before any cloud is read
+        for stage in (model_inference, skeletonizer):
+            if stage is not None:
+                resolve_device(stage.device)
+        self.preprocessing = preprocessing
+        self.model_inference = model_inference
+        self.skeletonizer = skeletonizer
+        self.repair_skeletons = repair_skeletons
+        self.smooth_skeletons = smooth_skeletons
+        self.smooth_kernel_size = smooth_kernel_size
+        self.prune_skeletons = prune_skeletons
+        self.min_skeleton_radius = min_skeleton_radius
+        self.min_skeleton_length = min_skeleton_length
+        self.view_model_output = view_model_output
+        self.view_skeletons = view_skeletons
+        self.save_outputs = save_outputs
+        self.save_path = save_path
+        self.branch_classes = list(branch_classes)
+        self.cmap = np.asarray(cmap, np.float32)
+
+    def process_cloud(
+        self, path: Optional[Path] = None, cloud: Optional[Cloud] = None,
+        stats: dict | None = None,
+    ) -> DisjointTreeSkeleton:
+        """`stats`, when given, receives the seconds of each stage and the
+        skeleton stage's counts (see Skeletonizer.forward)."""
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            now = time.perf_counter()
+            if stats is not None:
+                stats[name] = now - t0
+            t0 = now
+
+        cloud = load_cloud(path) if path is not None else cloud
+        log.info("pipeline: %d points in", len(cloud))
+        if self.preprocessing is not None:
+            cloud = self.preprocessing(cloud)
+
+        # forward ends with its downloads, so the host clock is the stage's
+        labelled = self.model_inference.forward(cloud)
+        lap("inference_s")
+        log.info("pipeline: inference done (%d labelled points)", len(labelled))
+        if self.view_model_output:
+            self._view_cloud(labelled)
+
+        branch_cloud = labelled.filter_by_class(self.branch_classes)
+        log.info("pipeline: %d branch-class points", len(branch_cloud))
+        skeleton = self.skeletonizer.forward(branch_cloud, stats=stats)
+        lap("skeletonize_s")
+        log.info("pipeline: %d skeletons", len(skeleton.skeletons))
+        self.post_process(skeleton)
+        lap("post_process_s")
+
+        if self.view_skeletons:
+            self._view_skeleton(skeleton, cloud)
+
+        if self.save_outputs:
+            self.save(skeleton, labelled)
+            lap("save_s")
+        return skeleton
+
+    def post_process(self, skeleton: DisjointTreeSkeleton) -> None:
+        # order: prune -> repair -> smooth
+        if self.prune_skeletons:
+            skeleton.prune(
+                min_length=self.min_skeleton_length,
+                min_radius=self.min_skeleton_radius,
+            )
+        if self.repair_skeletons:
+            skeleton.repair()
+        if self.smooth_skeletons:
+            skeleton.smooth(self.smooth_kernel_size)
+
+    def save(self, skeleton: DisjointTreeSkeleton, labelled: Cloud) -> None:
+        from ..viz.mesh import skeleton_lineset, skeleton_tube_mesh
+
+        sp = Path(self.save_path)
+        sp.mkdir(parents=True, exist_ok=True)
+        verts, edges = skeleton_lineset(skeleton)
+        save_ply_lineset(sp / "skeleton.ply", verts, edges)
+        mv, mt, mc = skeleton_tube_mesh(skeleton)
+        save_ply_mesh(sp / "mesh.ply", mv, mt, mc)
+        save_ply_cloud(sp / "cloud.ply", labelled.xyz, labelled.rgb)
+        seg_rgb = self.cmap[np.asarray(labelled.class_l).reshape(-1).astype(int)]
+        save_ply_cloud(sp / "seg_cld.ply", labelled.xyz, seg_rgb)
+
+    def _view_cloud(self, cloud: Cloud) -> None:
+        raise NotImplementedError("view_model_output: the viewer is not ported")
+
+    def _view_skeleton(self, skeleton, cloud) -> None:
+        raise NotImplementedError("view_skeletons: the viewer is not ported")

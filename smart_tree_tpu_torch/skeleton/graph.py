@@ -1,0 +1,52 @@
+"""Neighbourhood graph over medial points (counterpart of
+`smart_tree_tpu/skeleton/graph.py`): K nearest neighbours, invalidated where
+the distance exceeds the *source* point's radius.
+
+`drop_vertex_zero=True` replicates the original smart-tree's `idxs > 0`
+edge mask, which drops vertex 0 as a target; the default keeps `>= 0`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..neighbors.knn import knn
+
+
+class EdgeList(NamedTuple):
+    edges: torch.Tensor    # [N*K, 2] int64 (src, dst; dst -1 where missing)
+    weights: torch.Tensor  # [N*K] float32 distances, inf where invalid
+    valid: torch.Tensor    # [N*K] bool
+
+
+# brute force is O(N^2); the JAX package switches to its grid KNN past this
+# size (neighbors/grid.py), which is not ported yet
+MAX_BRUTE_FORCE_POINTS = 400_000
+
+
+@torch.no_grad()
+def nn_graph(points, radii, k: int = 16, valid=None,
+             drop_vertex_zero: bool = False) -> EdgeList:
+    """points [N,3] medial points; radii [N] connection radii (already
+    clamped by min_connection_length upstream)."""
+    n = points.shape[0]
+    if n > MAX_BRUTE_FORCE_POINTS:
+        raise NotImplementedError(
+            f"nn_graph: {n} points is past the brute-force KNN's limit of "
+            f"{MAX_BRUTE_FORCE_POINTS}; the grid KNN is not ported yet "
+            "(reduce with Skeletonizer.medial_quantize)"
+        )
+    r_max = (torch.where(valid, radii, 0.0) if valid is not None else radii).max()
+    dists, idxs = knn(points, points, k, r_max, src_valid=valid, dst_valid=valid)
+    # per-source radius gate
+    idxs = torch.where(dists <= radii[:, None], idxs, -1)
+    src = torch.arange(n, dtype=torch.int64, device=points.device)[:, None].expand(n, k)
+    edges = torch.stack([src.reshape(-1), idxs.reshape(-1)], dim=1)
+    weights = dists.reshape(-1)
+    evalid = edges[:, 1] > 0 if drop_vertex_zero else edges[:, 1] >= 0
+    if valid is not None:
+        evalid = evalid & valid[edges[:, 0]]
+    weights = torch.where(evalid, weights, float("inf"))
+    return EdgeList(edges=edges, weights=weights, valid=evalid)

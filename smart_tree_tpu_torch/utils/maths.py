@@ -12,3 +12,36 @@ def cube_filter(points, center, cube_size) -> np.ndarray:
     mn = center - cube_size / 2
     mx = center + cube_size / 2
     return np.logical_and(points >= mn, points < mx).all(axis=1)
+
+
+def polyline_frames(points) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Orthonormal (tangent, normal, binormal) frames along a polyline, for
+    tube meshing.
+
+    Tangents are central differences. All normals come from ONE shared
+    reference axis: the right-singular vector of the tangent matrix with the
+    smallest singular value (the direction least aligned with the whole
+    tangent bundle), projected onto each tangent's normal plane. The frames
+    vary continuously wherever the polyline does.
+    """
+    p = np.asarray(points, np.float64)
+    seg = np.diff(p, axis=0)
+    seg = seg / np.maximum(np.linalg.norm(seg, axis=1, keepdims=True), 1e-12)
+    t = np.empty_like(p)
+    t[0], t[-1] = seg[0], seg[-1]
+    if len(seg) > 1:
+        t[1:-1] = seg[:-1] + seg[1:]
+    t = t / np.maximum(np.linalg.norm(t, axis=1, keepdims=True), 1e-12)
+
+    _, _, vt = np.linalg.svd(t, full_matrices=False)
+    ref = vt[-1]
+    n = ref[None, :] - t * (t @ ref)[:, None]
+    bad = np.linalg.norm(n, axis=1) < 1e-6
+    if np.any(bad):
+        # a tangent (anti)parallel to ref: fall back to the next-least
+        # aligned axis for those vertices only
+        alt = vt[-2] if vt.shape[0] > 1 else np.roll(ref, 1)
+        n[bad] = alt[None, :] - t[bad] * (t[bad] @ alt)[:, None]
+    n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+    b = np.cross(t, n)
+    return (t.astype(np.float32), n.astype(np.float32), b.astype(np.float32))

@@ -148,7 +148,7 @@ def test_load_cloud_npz_and_ply(tmp_path):
                 np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))
         assert got.filename == tmp_path / name
     np.testing.assert_array_equal(
-        tfile.load_data_npz(tmp_path / "t.npz").xyz,
+        tfile.load_data_npz(tmp_path / "t.npz")[0].xyz,
         jfile.load_data_npz(tmp_path / "t.npz")[0].xyz,
     )
 
