@@ -36,9 +36,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      must have launched inside it, the skeleton must have branches, and the
      four PLYs must hold the counts the skeleton implies;
   9. the default configuration (fp32) on the small tree through Pipeline,
-     the card against the CPU.
-Then one line {"kernels": [...]}, the forward times, one line with the
-pipeline's stage times, and as the last line {"ok": true, "device": {...}}.
+     the card against the CPU;
+ 10. grid KNN: on the bench tree's reduced medial points (K = 16, r = the
+     largest connection radius) `grid_knn` against the brute-force `knn`,
+     both on the card and both timed; then `nn_graph` on more than 400,000
+     vertices (those points replicated at offsets, with a seeded jitter),
+     which takes the grid route;
+ 11. training at full width: a synthetic corpus into a temporary directory,
+     `train.main` with the default training configuration (planes
+     8/16/32/64, capacity 98,304, 416^3 grid) for two epochs, then resumed
+     for exactly one more; finite losses, a lower mean train loss in epoch 2
+     than in epoch 1, the checkpoints on disk, and no launch of either
+     forward-only hand kernel;
+ 12. a few train steps on the small tree (`fit_smoke`), the card against the
+     CPU from one seed;
+ 13. train -> serve: phase 11's best weights through
+     ModelInference(precision="bfloat16") on the validation tree; finite
+     outputs, and the slab kernel must have launched.
+Then one line {"kernels": [...]}, the forward times, one line each with the
+pipeline's stage times, the grid KNN's and the training's numbers, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -71,6 +88,24 @@ GEOM_TOL = dict(rtol=1e-5, atol=1e-6)    # branch vertices are gathered medial p
 # can move a medial point across a cell border: whole-pipeline skeletons are
 # held to the same branch counts and to their total length
 PIPELINE_LENGTH_RTOL = 1e-2
+# grid KNN against the brute force: 1 ulp of the distance, plus 4 ulps of the
+# largest coordinate (the brute force subtracts the box centre from both
+# points first, which rounds each coordinate once more)
+GRID_RTOL = 1e-6
+GRID_COORD_ULPS = 4 * 1.2e-7
+# the training corpus: trees of the bench tree's family, smaller. An epoch
+# draws TRAIN_PASSES differently augmented 4 m crops of every train tree (the
+# split lists each that often), so that three epochs are some forty steps: the
+# norms' running statistics, which serving reads, move a tenth of the way a step
+CORPUS_TREE = dict(height=10.0, trunk_radius=0.2, points_per_m2=8000.0, foliage_points=8000)
+CORPUS_SPLIT = dict(train=12, validation=1, test=1)
+TRAIN_PASSES = 4
+# fp32 exp overflows past 88.72; a served medial vector may be non-finite only
+# where the predicted log radius is up there (8 below, for the two forwards'
+# rounding), never elsewhere
+EXP_OVERFLOW_FROM = 80.0
+FIT_SMOKE_FIRST_RTOL = 1e-4   # one step: fp32 summation order
+FIT_SMOKE_RTOL = 1e-2         # six Adam steps amplify last-bit gradient differences
 
 
 def log(msg: str) -> None:
@@ -548,6 +583,223 @@ def main() -> int:
     log(f"default pipeline card vs cpu: {len(skeletons9['cpu'].skeletons)} skeletons, "
         f"length {len_card:.4f} / {len_cpu:.4f} m")
 
+    # 10. grid KNN against the brute force, and nn_graph past its threshold
+    from smart_tree_tpu_torch.neighbors import grid_knn, knn
+    from smart_tree_tpu_torch.skeleton import graph as graph_mod
+    from smart_tree_tpu_torch.skeleton.filter import outlier_removal
+    from smart_tree_tpu_torch.skeleton.quantize import medial_reduce
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    branch16 = out16.filter_by_class([0])
+    mp, mr, my = up(branch16.medial_pts), up(branch16.radius), up(branch16.xyz[:, 1])
+    keep = outlier_removal(mp, mr, nb_points=8, min_radius=0.02)
+    rep, _ = medial_reduce(mp, my, keep, 0.01)
+    mp, mr = mp[rep], mr[rep].clamp_min(0.02)
+    r_max = float(mr.max())
+    k = 16
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    grid_knn(mp[:4096], mp, k, r_max)  # warm-up of both at a few rows
+    knn(mp[:4096], mp, k, r_max)
+    _, grid_s = timed(lambda: grid_knn(mp, mp, k, r_max))
+    _, brute_s = timed(lambda: knn(mp, mp, k, r_max))
+    # held at K + 1, so that a tie between the K-th neighbour and the first
+    # one left out shows as a tie too
+    gd, gi = grid_knn(mp, mp, k + 1, r_max)
+    bd, bi = knn(mp, mp, k + 1, r_max)
+    hit = bi >= 0
+    if not torch.equal(gi >= 0, hit):
+        raise AssertionError("grid_knn and knn disagree on which neighbours exist")
+    coord = float(mp.abs().max())
+    gap = (gd[hit] - bd[hit]).abs()
+    if bool((gap > GRID_RTOL * bd[hit] + GRID_COORD_ULPS * coord).any()):
+        raise AssertionError(f"grid_knn distances off by up to {float(gap.max())}")
+    # rows whose distances are all different (by more than twice what the two
+    # methods may disagree by) must name the same neighbours
+    slack = 2 * (GRID_RTOL * bd[:, 1:] + GRID_COORD_ULPS * coord)
+    tied = ((bd[:, 1:] - bd[:, :-1]).abs() <= slack) & hit[:, 1:]
+    clean = ~tied.any(dim=1)
+    wrong = int((gi[clean, :k] != bi[clean, :k]).any(dim=1).sum())
+    if wrong or int(clean.sum()) < mp.shape[0] // 2:
+        raise AssertionError(f"grid_knn and knn name different neighbours on {wrong} of "
+                             f"{int(clean.sum())} rows without ties")
+    # past the threshold: the same points at five offsets, jittered from a seed
+    jit = torch.Generator(device=dev).manual_seed(10)
+    copies = -(-(graph_mod.GRID_KNN_THRESHOLD + 1) // mp.shape[0])
+    shifts = torch.arange(copies, device=dev, dtype=torch.float32)[:, None, None] * \
+        torch.tensor([30.0, 0.0, 0.0], device=dev)
+    big = (mp[None] + shifts).reshape(-1, 3)
+    big = big + (torch.rand(big.shape, generator=jit, device=dev) - 0.5) * 2e-3
+    big_r = mr.repeat(copies)
+    if big.shape[0] <= graph_mod.GRID_KNN_THRESHOLD:
+        raise AssertionError("the replicated cloud is not past the grid KNN threshold")
+    torch.cuda.reset_peak_memory_stats()
+    big_graph, big_s = timed(lambda: graph_mod.nn_graph(big, big_r, k=k))
+    big_peak = torch.cuda.max_memory_allocated()
+    degree = big_graph.valid.view(-1, k).sum(dim=1)
+    if int(degree.min()) < 1 or not bool(torch.isfinite(big_graph.weights[big_graph.valid]).all()):
+        raise AssertionError("nn_graph past the threshold: a vertex without its own edge")
+    # no edge may cross between the copies, 30 m apart
+    src_copy = big_graph.edges[:, 0] // mp.shape[0]
+    dst_copy = big_graph.edges[:, 1] // mp.shape[0]
+    if bool((big_graph.valid & (src_copy != dst_copy)).any()):
+        raise AssertionError("nn_graph past the threshold: an edge between two copies")
+    grid_stats = {
+        "card": card, "vertices": int(mp.shape[0]), "k": k, "r": r_max,
+        "grid_knn_s": grid_s, "knn_s": brute_s,
+        "rows_without_ties": int(clean.sum()), "max_abs_dist_gap": float(gap.max()),
+        "big_vertices": int(big.shape[0]), "big_nn_graph_s": big_s,
+        "big_peak_bytes": big_peak, "big_mean_degree": float(degree.float().mean()),
+    }
+    log(f"grid knn: {grid_stats}")
+    del big, big_r, big_graph, gd, gi, bd, bi, src_copy, dst_copy, degree
+
+    # 11. training at full width, through the entry point
+    from smart_tree_tpu_torch.data.file import save_data_npz
+    from smart_tree_tpu_torch.train import train as train_mod
+    from smart_tree_tpu_torch.utils.configs import DEFAULT_TRAINING
+
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        split, seed = {}, 100
+        for part, count in CORPUS_SPLIT.items():
+            split[part] = []
+            for _ in range(count):
+                tree_cloud, tree_skel = generate_tree(seed=seed, **CORPUS_TREE)
+                split[part].append(f"tree_{seed}.npz")
+                save_data_npz(str(work / split[part][-1]), tree_skel, tree_cloud)
+                seed += 1
+        split["train"] = split["train"] * TRAIN_PASSES
+        (work / "split.json").write_text(json.dumps(split))
+        argv = [f"directory={work}", f"json_path={work / 'split.json'}",
+                f"output_dir={work / 'runs'}", "capture_output=0"]
+        slab_conv.slab_gather_conv.launches = 0
+        fused_conv.fused_gather_gemm.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_stats: dict = {}
+        t0 = time.perf_counter()
+        if train_mod.main(argv + ["num_epoch=2"], stats=train_stats) != 0:
+            raise AssertionError("train.main returned non-zero")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated()
+        epochs = train_stats["epochs"]
+        if [e["epoch"] for e in epochs] != [0, 1]:
+            raise AssertionError(f"training ran epochs {[e['epoch'] for e in epochs]}")
+        for e in epochs:
+            for phase in ("train", "val", "test"):
+                if not (e[phase]["steps"] > 0 and np.isfinite(e[phase]["total_loss"])):
+                    raise AssertionError(f"epoch {e['epoch']} {phase}: {e[phase]}")
+        if not epochs[1]["train"]["total_loss"] < epochs[0]["train"]["total_loss"]:
+            raise AssertionError("the mean train loss did not fall from epoch 1 to epoch 2: "
+                                 f"{[e['train']['total_loss'] for e in epochs]}")
+        run_dir = Path(train_stats["out_dir"])
+        for name in ("best_weights.npz", "variables.npz", "train_state.pkl",
+                     "last/variables.npz", "last/train_state.pkl"):
+            if not (run_dir / name).is_file():
+                raise AssertionError(f"training left no {name}")
+        resumed: dict = {}
+        if train_mod.main(argv + ["num_epoch=3", f"resume={run_dir / 'last'}"],
+                          stats=resumed) != 0:
+            raise AssertionError("the resumed train.main returned non-zero")
+        if [e["epoch"] for e in resumed["epochs"]] != [2]:
+            raise AssertionError("resume did not run exactly one more epoch: "
+                                 f"{[e['epoch'] for e in resumed['epochs']]}")
+        if not np.isfinite(resumed["epochs"][0]["train"]["total_loss"]):
+            raise AssertionError("the resumed epoch's loss is not finite")
+        if slab_conv.slab_gather_conv.launches or fused_conv.fused_gather_gemm.launches:
+            raise AssertionError("a forward-only hand kernel was launched during training")
+        steps = [e["train"] for e in epochs]
+        timed_steps = sum(t["steps"] - 1 for t in steps)
+        if timed_steps < 1:
+            raise AssertionError("an epoch of one step: nothing to time after the first")
+        step_s = sum(t["step_s"] * (t["steps"] - 1) for t in steps if t["step_s"]) / timed_steps
+        training = {
+            "card": card,
+            "planes": DEFAULT_TRAINING["model"]["unet_planes"],
+            "batch_capacity": DEFAULT_TRAINING["batch_capacity"],
+            "spatial_shape": DEFAULT_TRAINING["spatial_shape"],
+            "trees": CORPUS_SPLIT, "train_passes": TRAIN_PASSES, "epochs": 2,
+            "steps": sum(t["steps"] for t in steps),
+            "voxels_per_step": sum(t["voxels"] for t in steps) / sum(t["steps"] for t in steps),
+            "step_s": step_s,
+            "voxels_per_s": sum(t["voxels"] for t in steps) / sum(t["steps"] for t in steps)
+            / step_s,
+            # the whole train epochs on the host's clock, the first step of each
+            # (which waits for a window of items to be made) included
+            "epoch_voxels_per_s": sum(t["voxels"] for t in steps)
+            / sum(t["fetch_s"] + t["dispatch_s"] + t["device_wait_s"] for t in steps),
+            "fetch_s": sum(t["fetch_s"] for t in steps),
+            "dispatch_s": sum(t["dispatch_s"] for t in steps),
+            "device_wait_s": sum(t["device_wait_s"] for t in steps),
+            "eval_steps": sum(e[p]["steps"] for e in epochs for p in ("val", "test")),
+            "train_loss_by_epoch": [e["train"]["total_loss"] for e in epochs]
+            + [resumed["epochs"][0]["train"]["total_loss"]],
+            "val_loss_by_epoch": [e["val"]["total_loss"] for e in epochs]
+            + [resumed["epochs"][0]["val"]["total_loss"]],
+            "two_epochs_s": train_s, "peak_bytes": train_peak,
+        }
+        log(f"training: {training}")
+
+        # 13. train -> serve (before the temporary directory goes): the best
+        # weights in the bf16 server on the validation tree
+        from smart_tree_tpu_torch.data.file import load_data_npz
+
+        val_cloud = CentreCloud()(load_data_npz(work / split["validation"][0])[0])
+        served = ModelInference(run_dir / "best_weights.npz", precision="bfloat16")
+        served.max_batch_capacity = min(served.max_batch_capacity, MAX_BATCH_CAPACITY)
+        slab_conv.slab_gather_conv.launches = 0
+        # forward() returns exp(log radius) * direction. After some 40 steps at
+        # lr 0.01 the running statistics still lag the weights, and on some
+        # runs a few voxels' log radius passes 88, where fp32 exp gives inf.
+        # That is these weights' doing, not the server's: what the network
+        # puts out must be finite, the rows that exp overflows are counted.
+        with np.errstate(over="ignore", invalid="ignore"):
+            out_served = served.forward(val_cloud)
+        torch.cuda.synchronize()
+        served_launches = slab_conv.slab_gather_conv.launches
+        if served_launches == 0:
+            raise AssertionError("serving the trained weights never launched the slab kernel")
+        if len(out_served) == 0:
+            raise AssertionError("serving the trained weights returned no voxel")
+        for name in ("xyz", "class_l"):
+            if not np.isfinite(getattr(out_served, name)).all():
+                raise AssertionError(f"serving the trained weights: non-finite {name}")
+        raw_served = served.predict(val_cloud)
+        for name in ("radius", "direction", "class_logits"):
+            if raw_served[name].shape[0] != len(out_served) or \
+                    not np.isfinite(raw_served[name]).all():
+                raise AssertionError(f"serving the trained weights: non-finite {name}")
+        overflowed = ~np.isfinite(out_served.medial_vector).all(axis=1)
+        exp_overflows = int(overflowed.sum())
+        if (raw_served["radius"][overflowed, 0] < EXP_OVERFLOW_FROM).any():
+            raise AssertionError("serving the trained weights: a non-finite medial vector "
+                                 "at a log radius that fp32 exp can hold")
+        training.update(served_points=len(val_cloud), served_voxels=len(out_served),
+                        served_slab_launches=served_launches,
+                        served_feature_mode=served.feature_mode,
+                        served_log_radius_max=float(raw_served["radius"].max()),
+                        served_exp_overflows=exp_overflows)
+
+    # 12. a few train steps on the small tree, the card against the CPU
+    fit_card = train_mod.fit_smoke(small_raw, steps=6, capacity=16384)
+    fit_cpu = train_mod.fit_smoke(small_raw, steps=6, capacity=16384, device="cpu")
+    if not (np.isfinite(fit_card).all() and fit_card[-1] < fit_card[0]):
+        raise AssertionError(f"fit_smoke on the card does not learn: {fit_card}")
+    np.testing.assert_allclose(fit_card[0], fit_cpu[0], rtol=FIT_SMOKE_FIRST_RTOL)
+    np.testing.assert_allclose(fit_card, fit_cpu, rtol=FIT_SMOKE_RTOL)
+    training.update(fit_smoke_card=fit_card.tolist(), fit_smoke_cpu=fit_cpu.tolist())
+    log(f"fit_smoke card {fit_card} cpu {fit_cpu}")
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -598,6 +850,8 @@ def main() -> int:
         "class_agreement_bf16_vs_fp32": agree_bf16,
     }), flush=True)
     print(json.dumps({"pipeline": pipe_stats}), flush=True)
+    print(json.dumps({"grid_knn": grid_stats}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -92,7 +92,9 @@ def fused_gather_gemm(
     """out[M, Cout] = gather(feats by rulebook) @ weights in fp32.
     feats [N, Cin] float32, rulebook [M, K3] int32 (-1 missing), weights
     [K3, Cin, Cout]. CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    plain version. Forward only: raises when autograd would need a gradient
+    from it."""
+    kernels.refuse_grad("fused_gather_gemm", feats, weights)
     if feats.device.type == "cpu":
         if rulebook.device.type != "cpu" or weights.device.type != "cpu":
             raise ValueError("feats is on the CPU but rulebook or weights are not")

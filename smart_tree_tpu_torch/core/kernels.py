@@ -21,6 +21,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = ("slab_conv.cu", "fused_conv.cu")
@@ -121,3 +123,20 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, feats, weights) -> None:
+    """The hand kernels are forward-only and take raw pointers: their result
+    carries no autograd history. Raise rather than return a tensor whose
+    gradient would silently be missing."""
+    if needs_grad(feats, weights):
+        raise RuntimeError(
+            f"{what} has no backward: feats or weights require grad. Call it under "
+            "torch.no_grad(), or go through core.sparse_ops.gather_conv, which "
+            "differentiates through gather + matmul"
+        )

@@ -200,7 +200,9 @@ def slab_gather_conv(
     """out[M, Cout] = gather(feats by rulebook) @ weights at bf16 operand
     precision with fp32 accumulation. feats [N, Cin] float32, rulebook
     [M, 27] int32 (-1 missing, columns monotone), weights [27, Cin, Cout].
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Forward only: raises when autograd would need a gradient from it."""
+    kernels.refuse_grad("slab_gather_conv", feats, weights)
     if feats.device.type == "cpu":
         if rulebook.device.type != "cpu" or weights.device.type != "cpu":
             raise ValueError("feats is on the CPU but rulebook or weights are not")

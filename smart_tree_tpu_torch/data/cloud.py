@@ -2,7 +2,8 @@
 
 Counterpart of `smart_tree_tpu/data/cloud.py` without the pytree
 registration: medial_pts = xyz + medial_vector, radius = |medial_vector|,
-direction its normalised form.
+direction its normalised form. scale / translate / rotate drop the labels, as
+the original smart-tree's do.
 """
 
 from __future__ import annotations
@@ -53,6 +54,16 @@ class Cloud:
 
     def filter_by_class(self, classes) -> "Cloud":
         return self.filter(np.isin(self.class_l.reshape(-1), np.asarray(classes)))
+
+    # transforms (drop labels)
+    def scale(self, factor) -> "Cloud":
+        return Cloud(self.xyz * factor, self.rgb, filename=self.filename)
+
+    def translate(self, offset) -> "Cloud":
+        return Cloud(self.xyz + offset, self.rgb, filename=self.filename)
+
+    def rotate(self, rot_mat) -> "Cloud":
+        return Cloud(self.xyz @ rot_mat, self.rgb, filename=self.filename)
 
     @property
     def min_xyz(self):

@@ -1,21 +1,34 @@
-"""Inference block tiling (host, numpy).
+"""Datasets (host, numpy): training voxel batches and inference block tiling.
 
-Counterpart of the inference half of `smart_tree_tpu/data/dataset.py`:
-`BlockTiler` floor-divides a cloud into block_size cubes, drops blocks with
-too few points, crops each with a +-buffer halo, voxelises it (one point per
-voxel) and marks the interior; `batches` packs blocks into padded pow2
-capacity batches (`VoxelBatch`).
+Counterpart of `smart_tree_tpu/data/dataset.py`:
+
+  TreeDataset  load an npz -> augment -> gather input and target features by
+               name -> voxelise (one point per voxel) -> `collate` into a
+               PADDED fixed-capacity batch. A plain host iterator, no
+               DataLoader.
+  BlockTiler   floor-divide a cloud into block_size cubes, drop blocks with
+               too few points, crop each with a +-buffer halo, voxelise it and
+               mark the interior; `batches` packs blocks into padded pow2
+               capacity batches.
+
+Both produce a `VoxelBatch`.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 
 from ..utils.maths import cube_filter
 from .cloud import Cloud
+from .file import load_cloud
+
+log = logging.getLogger(__name__)
 
 
 def _ceil_pow2(n: int, floor: int = 1024) -> int:
@@ -29,9 +42,9 @@ class VoxelBatch(NamedTuple):
     """Host-side padded batch."""
 
     feats: np.ndarray        # [cap, C_in] input features (xyz + rgb)
-    targets: np.ndarray | None
+    targets: np.ndarray | None  # [cap, C_t] target features (training only)
     coords: np.ndarray       # [cap, 4] int32 (b, x, y, z); -1 padding
-    mask: np.ndarray         # [cap] bool: interior rows
+    mask: np.ndarray         # [cap] bool: loss / interior mask
     valid: np.ndarray        # [cap] bool: real voxel rows (a prefix)
     spatial_shape: Tuple[int, int, int]
     batch_size: int
@@ -60,6 +73,165 @@ def voxelize_host(
     g = np.floor((xyz - origin) / voxel_size).astype(np.int32)
     _, first = np.unique(g, axis=0, return_index=True)
     return g[first], data[first], origin
+
+
+def _feature(cloud: Cloud, name: str) -> np.ndarray:
+    v = np.asarray(getattr(cloud, name))
+    return v.reshape(len(cloud), -1).astype(np.float32)
+
+
+class TreeDataset:
+    """Training dataset over a split json ({"train": [...], "validation":
+    [...], "test": [...]} of paths relative to `directory`)."""
+
+    def __init__(
+        self,
+        voxel_size,
+        json_path,
+        directory,
+        mode,
+        input_features,
+        target_features,
+        augmentation=None,
+        cache: bool = False,
+        seed: int = 0,
+    ):
+        self.voxel_size = voxel_size
+        self.mode = mode
+        self.augmentation = augmentation
+        self.directory = Path(directory)
+        self.input_features = list(input_features)
+        self.target_features = list(target_features)
+        json_path = Path(json_path)
+        assert json_path.is_file(), f"json metadata does not exist at '{json_path}'"
+        with open(json_path) as f:
+            data = json.load(f)
+        key = {"train": "train", "validation": "validation", "test": "test"}[mode]
+        self.tree_paths = data[key]
+        missing = [p for p in self.tree_paths if not (self.directory / p).is_file()]
+        assert len(missing) == 0, f"Missing {len(missing)} files: {missing[:4]}"
+        self._cache = {} if cache else None
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.tree_paths)
+
+    def load(self, idx: int) -> Cloud:
+        fname = self.directory / self.tree_paths[idx]
+        if self._cache is None:
+            return load_cloud(fname)
+        if fname not in self._cache:
+            self._cache[fname] = load_cloud(fname)
+        return self._cache[fname]
+
+    def item(self, idx: int):
+        """One voxelised item: (coords [M,3] int32, input [M,Ci],
+        target [M,Ct], filename, grid_origin [3])."""
+        cld = self.load(idx)
+        if self.augmentation is not None:
+            # validation and test crops are DETERMINISTIC per item: a fresh
+            # per-index rng makes the validation loss comparable across
+            # epochs, or best-checkpoint selection and the early stop key on
+            # crop luck
+            rng = (
+                self.rng
+                if self.mode == "train"
+                else np.random.default_rng(100_003 * (idx + 1))
+            )
+            cld = self.augmentation(cld, rng)
+        assert len(cld) > 0, f"Empty cloud after augmentation: {self.tree_paths[idx]}"
+        inputs = np.concatenate([_feature(cld, n) for n in self.input_features], axis=1)
+        targets = np.concatenate([_feature(cld, n) for n in self.target_features], axis=1)
+        data = np.concatenate([inputs, targets], axis=1)
+        coords, data, origin = voxelize_host(
+            np.asarray(cld.xyz, np.float32), data, self.voxel_size
+        )
+        ci = inputs.shape[1]
+        return coords, data[:, :ci], data[:, ci:], self.tree_paths[idx], origin
+
+    def batches(
+        self, batch_size: int, shuffle: bool = True, capacity: int | None = None
+    ) -> Iterator[VoxelBatch]:
+        order = np.arange(len(self))
+        if shuffle:
+            self.rng.shuffle(order)
+        for start in range(0, len(order), batch_size):
+            idxs = order[start : start + batch_size]
+            items = [self.item(i) for i in idxs]
+            yield collate(items, batch_size, capacity)
+
+
+def collate(
+    items,
+    batch_size: int,
+    capacity: int | None = None,
+    on_overflow: str = "raise",
+    voxel_size: float = 0.0,
+) -> VoxelBatch:
+    """Stack per-item voxels into one padded batch with a batch-index
+    column. Items: (coords, inputs, targets, name[, origin]).
+
+    A fixed `capacity` smaller than the voxel count is an ERROR by default:
+    silent truncation would corrupt training targets invisibly. Pass
+    on_overflow="warn" (log and truncate; for long unattended runs) or
+    "truncate" (silent) to accept dropping the tail instead."""
+    total = sum(len(it[0]) for it in items)
+    cap = capacity or _ceil_pow2(total)
+    if total > cap:
+        if on_overflow == "raise":
+            raise RuntimeError(
+                f"collate overflow: {total} voxels > capacity {cap} "
+                f"(items: {[len(it[0]) for it in items]}); raise batch_capacity "
+                "or pass on_overflow='truncate'"
+            )
+        if on_overflow == "warn":
+            log.warning(
+                "collate overflow: %d voxels > capacity %d, truncating (items %s)",
+                total, cap, [len(it[0]) for it in items],
+            )
+    ci = items[0][1].shape[1]
+    ct = items[0][2].shape[1] if items[0][2] is not None else 0
+    coords = np.full((cap, 4), -1, np.int32)
+    feats = np.zeros((cap, ci), np.float32)
+    targets = np.zeros((cap, ct), np.float32) if ct else None
+    mask = np.zeros(cap, bool)
+    valid = np.zeros(cap, bool)
+    row = 0
+    max_c = np.zeros(3, np.int64)
+    names = []
+    origins = np.zeros((batch_size, 3), np.float32)
+    have_origins = len(items[0]) > 4
+    for b, it in enumerate(items):
+        c, f, t, name = it[:4]
+        if have_origins:
+            origins[b] = it[4]
+        names.append(name)
+        n = len(c)
+        if row + n > cap:
+            n = cap - row  # truncate on overflow (callers size the capacity)
+        coords[row : row + n, 0] = b
+        coords[row : row + n, 1:] = c[:n]
+        feats[row : row + n] = f[:n]
+        if targets is not None:
+            targets[row : row + n] = t[:n]
+        mask[row : row + n] = True
+        valid[row : row + n] = True
+        if n:
+            max_c = np.maximum(max_c, c[:n].max(axis=0))
+        row += n
+    shape = tuple(int(v) + 1 for v in max_c)
+    return VoxelBatch(
+        origins=origins if have_origins else None,
+        voxel_size=voxel_size,
+        feats=feats,
+        targets=targets,
+        coords=coords,
+        mask=mask,
+        valid=valid,
+        spatial_shape=shape,
+        batch_size=len(items),
+        filenames=tuple(names),
+    )
 
 
 @dataclass

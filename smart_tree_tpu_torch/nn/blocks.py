@@ -5,7 +5,8 @@ Counterpart of `smart_tree_tpu/nn/blocks.py`: the same block algebra
 precomputed UNetPlan. Child names reproduce the flax module paths (for
 example `UNet.U.Encode.sequence.0.weight`), so a state_dict key is the flax
 variable path joined with dots (nn/convert.py). Conv weights keep the JAX
-layout [K3, Cin, Cout].
+layout [K3, Cin, Cout]. `module.training` plays the JAX `train` flag: it
+switches every MaskedBatchNorm between batch and running statistics.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ class ConvNormAct(nn.Module):
 
     def forward(self, feats, rulebook, mask, cfg: ConvConfig):
         x = getattr(self, "0")(feats, rulebook, cfg)
-        x = torch.relu(getattr(self, "1")(x))
+        x = torch.relu(getattr(self, "1")(x, mask))
         return _masked(x, mask)
 
 
@@ -83,8 +84,8 @@ class ResBlock(nn.Module):
     def forward(self, feats, subm_rb, mask, cfg: ConvConfig):
         seq = self.sequence
         ident = feats if self.identity is None else self.identity["0"](feats, None, cfg)
-        x = _masked(torch.relu(seq["1"](seq["0"](feats, subm_rb, cfg))), mask)
-        x = seq["4"](seq["3"](x, subm_rb, cfg))
+        x = _masked(torch.relu(seq["1"](seq["0"](feats, subm_rb, cfg), mask)), mask)
+        x = seq["4"](seq["3"](x, subm_rb, cfg), mask)
         return _masked(torch.relu(x + ident), mask)
 
 
@@ -136,6 +137,6 @@ class SparseFC(nn.Module):
         x = feats
         for i in range(self.depth - 2):
             x = self.sequence[str(3 * i)](x, None, cfg)
-            x = _masked(torch.relu(self.sequence[str(3 * i + 1)](x)), mask)
+            x = _masked(torch.relu(self.sequence[str(3 * i + 1)](x, mask)), mask)
         x = self.sequence[str(3 * (self.depth - 2))](x, None, cfg)
         return _masked(x, mask)

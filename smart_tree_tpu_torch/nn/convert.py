@@ -1,4 +1,4 @@
-"""Checkpoints into the port's state_dict.
+"""Checkpoints into the port's state_dict, and back.
 
 The shipped checkpoints (`smart_tree_tpu/weights/*.npz`) store flax
 variables as "<collection>/<module path>/<leaf>" arrays. The port's module
@@ -6,6 +6,10 @@ names reproduce the flax paths, so a state_dict key is the path without the
 collection, joined with dots: "params/UNet/Head/sequence.0/weight" becomes
 "UNet.Head.sequence.0.weight" and "batch_stats/.../sequence.1/mean" becomes
 "....sequence.1.mean". Conv weights keep the [K3, Cin, Cout] layout.
+
+The way back (`variables_from_model`, `save_npz`) splits a state_dict key
+into the flax path again, so a checkpoint the port writes loads in the JAX
+package's `load_npz` and in the port's own.
 """
 
 from __future__ import annotations
@@ -43,6 +47,59 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for path, v in _flatten(variables.get(collection, {})).items():
             sd[".".join(path)] = _tensor(v)
     return sd
+
+
+def flax_path(key: str) -> tuple:
+    """The flax variable path of a state_dict key. flax module names hold
+    dots ("Encode.sequence", "sequence.0") and a head's weights are leaves
+    named "sequence.<i>.weight", so the key does not split on every dot:
+
+      Encode / Decode / input_conv   "<name>.sequence" is one scope, its
+                                     children "0" and "1" the next
+      Head / Tail (ResBlock)         "sequence.<i>" and "identity.0" are scopes
+      *_head (SparseFC)              "sequence.<i>.weight" is one leaf,
+                                     "sequence.<i>" a BatchNorm scope
+    """
+    t = key.split(".")
+    out = []
+    i = 0
+    while i < len(t):
+        if t[i] in ("Encode", "Decode", "input_conv"):
+            out.append(f"{t[i]}.{t[i + 1]}")
+            i += 2
+        elif t[i] in ("sequence", "identity"):
+            if t[0].endswith("_head") and t[-1] == "weight":
+                out.append(".".join(t[i:]))
+                break
+            out.append(f"{t[i]}.{t[i + 1]}")
+            i += 2
+        else:
+            out.append(t[i])
+            i += 1
+    return tuple(out)
+
+
+def variables_from_model(model: SmartTree) -> Dict[str, Any]:
+    """The model's parameters and running statistics as nested numpy dicts
+    in the flax layout: {"params": {...}, "batch_stats": {...}}."""
+    buffers = {name for name, _ in model.named_buffers()}
+    out: Dict[str, Any] = {c: {} for c in _COLLECTIONS}
+    for key, v in model.state_dict().items():
+        node = out["batch_stats" if key in buffers else "params"]
+        *scopes, leaf = flax_path(key)
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = v.detach().to(torch.float32).cpu().numpy().copy()
+    return out
+
+
+def save_npz(path, variables: Mapping[str, Any]) -> None:
+    """Nested variables to a checkpoint .npz of "<collection>/<path>" arrays."""
+    flat = {}
+    for collection, tree in variables.items():
+        for p, v in _flatten(tree).items():
+            flat[collection + "/" + "/".join(p)] = np.asarray(v)
+    np.savez_compressed(path, **flat)
 
 
 def resolve_weights(path) -> Path:

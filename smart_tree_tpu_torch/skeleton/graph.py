@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..neighbors.grid import grid_knn
 from ..neighbors.knn import knn
 
 
@@ -21,9 +22,7 @@ class EdgeList(NamedTuple):
     valid: torch.Tensor    # [N*K] bool
 
 
-# brute force is O(N^2); the JAX package switches to its grid KNN past this
-# size (neighbors/grid.py), which is not ported yet
-MAX_BRUTE_FORCE_POINTS = 400_000
+GRID_KNN_THRESHOLD = 400_000  # brute force is O(N^2); the grid KNN wins past this
 
 
 @torch.no_grad()
@@ -32,14 +31,12 @@ def nn_graph(points, radii, k: int = 16, valid=None,
     """points [N,3] medial points; radii [N] connection radii (already
     clamped by min_connection_length upstream)."""
     n = points.shape[0]
-    if n > MAX_BRUTE_FORCE_POINTS:
-        raise NotImplementedError(
-            f"nn_graph: {n} points is past the brute-force KNN's limit of "
-            f"{MAX_BRUTE_FORCE_POINTS}; the grid KNN is not ported yet "
-            "(reduce with Skeletonizer.medial_quantize)"
-        )
     r_max = (torch.where(valid, radii, 0.0) if valid is not None else radii).max()
-    dists, idxs = knn(points, points, k, r_max, src_valid=valid, dst_valid=valid)
+    if n > GRID_KNN_THRESHOLD:
+        dists, idxs = grid_knn(points, points, k, float(r_max), src_valid=valid,
+                               dst_valid=valid)
+    else:
+        dists, idxs = knn(points, points, k, r_max, src_valid=valid, dst_valid=valid)
     # per-source radius gate
     idxs = torch.where(dists <= radii[:, None], idxs, -1)
     src = torch.arange(n, dtype=torch.int64, device=points.device)[:, None].expand(n, k)

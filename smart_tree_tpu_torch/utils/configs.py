@@ -3,9 +3,10 @@
 `_partial_` recursive instantiation, `${dotted.path}` interpolation against
 the config root, and `key=value` / `+key=value` CLI overrides.
 
-PyYAML is imported only where YAML text is parsed (`load_yaml`,
-`apply_overrides`), so `instantiate` and `DEFAULT_PIPELINE`, the default
-pipeline configuration as a dict, work on a host without it.
+PyYAML is imported only where YAML text is parsed (`load_yaml`, and override
+values where it is installed), so `instantiate`, the override engine and the
+default configurations as dicts (`DEFAULT_PIPELINE`, `DEFAULT_TRAINING`) work
+on a host without it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import copy
 import functools
 import importlib
+import json
 import re
 from pathlib import Path
 from typing import Any, Dict, List
@@ -61,9 +63,90 @@ DEFAULT_PIPELINE: Dict[str, Any] = {
 }
 
 
+# conf/training.yaml as loaded, interpolations unresolved so that an override
+# of `voxel_size` or `directory` reaches every dataset (a test holds the two
+# equal)
+_AUG = "smart_tree_tpu_torch.data.augmentations."
+
+
+def _training_dataset(mode: str, augmentations: List[Dict[str, Any]],
+                      cache: bool | None = None) -> Dict[str, Any]:
+    node: Dict[str, Any] = {
+        "_target_": "smart_tree_tpu_torch.data.dataset.TreeDataset",
+        "mode": mode,
+        "voxel_size": "${voxel_size}",
+        "directory": "${directory}",
+        "json_path": "${json_path}",
+        "input_features": "${input_features}",
+        "target_features": "${target_features}",
+    }
+    if cache is not None:
+        node["cache"] = cache
+    node["augmentation"] = {
+        "_target_": _AUG + "AugmentationPipeline",
+        "augmentations": augmentations,
+    }
+    return node
+
+
+def _crop() -> Dict[str, Any]:
+    return {"_target_": _AUG + "RandomCubicCrop", "size": 4.0}
+
+
+DEFAULT_TRAINING: Dict[str, Any] = {
+    "wandb": {"project": "tree", "entity": None, "mode": "disabled"},
+    "seed": 1,
+    "fp16": False,
+    "num_epoch": 100,
+    "lr_decay": True,
+    "lr": 0.01,
+    "direction_loss": "cosine",
+    "direction_min_radius": None,
+    "feature_mode": "local",
+    "early_stop_epoch": 20,
+    "early_stop": True,
+    "batch_size": 4,
+    "directory": "data/synthetic-trees",
+    "json_path": "data/synthetic-trees/split.json",
+    "voxel_size": 0.01,
+    "batch_capacity": 98304,
+    "spatial_shape": [416, 416, 416],
+    "output_dir": "runs",
+    "resume": None,
+    "warm_start": None,
+    "capture_output": 10,
+    "input_features": ["xyz"],
+    "target_features": ["radius", "direction", "class_l"],
+    "train_dataset": _training_dataset(
+        "train",
+        [
+            {"_target_": _AUG + "RandomRotateY"},
+            {"_target_": _AUG + "RandomScale", "min_scale": 0.8, "max_scale": 1.2},
+            _crop(),
+            {"_target_": _AUG + "RandomDropout", "max_drop_out": 0.3},
+        ],
+        cache=True,
+    ),
+    "test_dataset": _training_dataset("test", [_crop()]),
+    "validation_dataset": _training_dataset("validation", [_crop()], cache=True),
+    "model": {
+        "input_channels": 4,
+        "unet_planes": [8, 16, 32, 64],
+        "radius_fc_planes": [8, 8, 4, 1],
+        "direction_fc_planes": [8, 8, 4, 3],
+        "class_fc_planes": [8, 8, 4, 2],
+    },
+}
+
+
 def default_pipeline_config() -> Dict[str, Any]:
     """A fresh copy of DEFAULT_PIPELINE for the caller to edit."""
     return copy.deepcopy(DEFAULT_PIPELINE)
+
+
+def default_training_config() -> Dict[str, Any]:
+    """A fresh copy of DEFAULT_TRAINING (unresolved) for the caller to edit."""
+    return copy.deepcopy(DEFAULT_TRAINING)
 
 
 def load_yaml(path) -> Dict[str, Any]:
@@ -124,16 +207,34 @@ def instantiate(node: Any, **overrides) -> Any:
     return target(**kwargs)
 
 
+def _parse_value(text: str) -> Any:
+    """The value of a key=value override: YAML where PyYAML is installed,
+    else the JSON subset of it (numbers, true / false / null in any case,
+    [lists], "strings") with anything else taken as a plain string."""
+    try:
+        import yaml
+    except ImportError:
+        word = text.strip().lower()
+        if word in ("true", "false", "null"):
+            return {"true": True, "false": False, "null": None}[word]
+        try:
+            value = json.loads(text)
+        except ValueError:
+            return text
+        if isinstance(value, float) and "." not in text:
+            return text  # PyYAML reads "1e-3" as a string: a float needs its dot
+        return value
+    return yaml.safe_load(text)
+
+
 def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]:
     """key=value and +key=value (add) CLI overrides, dotted paths."""
-    import yaml
-
     for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"override '{ov}' is not key=value")
         key, val = ov.split("=", 1)
         key = key.lstrip("+")
-        parsed = yaml.safe_load(val)
+        parsed = _parse_value(val)
         node = cfg
         parts = key.split(".")
         for p in parts[:-1]:

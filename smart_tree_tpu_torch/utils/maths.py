@@ -5,6 +5,20 @@ from __future__ import annotations
 import numpy as np
 
 
+def euler_angles_to_rotation(xyz) -> np.ndarray:
+    x, y, z = (float(v) for v in xyz)
+    rx = np.array(
+        [[1, 0, 0], [0, np.cos(x), -np.sin(x)], [0, np.sin(x), np.cos(x)]]
+    )
+    ry = np.array(
+        [[np.cos(y), 0, np.sin(y)], [0, 1, 0], [-np.sin(y), 0, np.cos(y)]]
+    )
+    rz = np.array(
+        [[np.cos(z), -np.sin(z), 0], [np.sin(z), np.cos(z), 0], [0, 0, 1]]
+    )
+    return rz @ ry @ rx
+
+
 def cube_filter(points, center, cube_size) -> np.ndarray:
     """AABB mask: center +- cube_size/2, half-open [min, max)."""
     points = np.asarray(points)

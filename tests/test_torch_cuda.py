@@ -215,3 +215,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # Cin 132 is past the fused kernel's 128
         fused_conv.fused_gather_gemm(torch.zeros((10, 132), device=cuda), rb,
                                      torch.zeros((27, 132, 8), device=cuda))
+
+
+def test_fit_smoke_on_the_card_matches_the_cpu(cuda):
+    """A few train steps on one small tree: the card against the CPU from one
+    seed. The first step at rtol 1e-4 (fp32 summation order); later steps at
+    rtol 1e-2 (Adam's early steps amplify last-bit gradient differences)."""
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.train.train import fit_smoke
+
+    cloud, _ = generate_tree(seed=3, height=2.0, trunk_radius=0.06, points_per_m2=6000.0,
+                             foliage_points=300)
+    before = slab_conv.slab_gather_conv.launches, fused_conv.fused_gather_gemm.launches
+    on_card = fit_smoke(cloud, steps=6, capacity=16384, device=cuda)
+    on_cpu = fit_smoke(cloud, steps=6, capacity=16384, device="cpu")
+    assert np.isfinite(on_card).all() and on_card[-1] < on_card[0]
+    np.testing.assert_allclose(on_card[0], on_cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-2)
+    # training needs gradients: no forward-only hand kernel may have run
+    assert before == (slab_conv.slab_gather_conv.launches,
+                      fused_conv.fused_gather_gemm.launches)

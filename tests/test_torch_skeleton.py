@@ -116,9 +116,13 @@ def test_nn_graph_matches_jax(branch_cloud, drop_vertex_zero):
 
 
 def test_nn_graph_refuses_what_needs_the_grid_knn(monkeypatch):
-    monkeypatch.setattr(tgraph, "MAX_BRUTE_FORCE_POINTS", 10)
-    with pytest.raises(NotImplementedError, match="grid KNN"):
-        tgraph.nn_graph(torch.zeros((11, 3)), torch.ones(11))
+    """Nothing is refused any more: past the threshold the graph comes from
+    the grid KNN (held against the brute force in test_torch_grid_knn.py)."""
+    monkeypatch.setattr(tgraph, "GRID_KNN_THRESHOLD", 10)
+    monkeypatch.setattr(tgraph, "knn", None)
+    pts = torch.arange(33, dtype=torch.float32).reshape(11, 3) * 0.01
+    got = tgraph.nn_graph(pts, torch.ones(11), k=4)
+    assert got.valid.all() and (got.edges[::4, 1] == torch.arange(11)).all()
 
 
 def _random_forest(seed, n):
