@@ -52,10 +52,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      CPU from one seed;
  13. train -> serve: phase 11's best weights through
      ModelInference(precision="bfloat16") on the validation tree; finite
-     outputs, and the slab kernel must have launched.
+     outputs, and the slab kernel must have launched;
+ 14. the input side and the transfers on the bench tree at bf16: the native
+     host dedup against the numpy one on every block (equal results, both
+     tilings timed); ModelInference.forward with compact_transfers=False,
+     compact, and compact + culled (the default configuration), each timed
+     at max_in_flight 1 and 2 (equal clouds) with the bytes it moved; culled
+     against compact exact (non-medial rows exactly 0), compact against the
+     full download at the JAX package's own bounds; the slab kernel must
+     have launched in both compact modes, and both kernels in a culled
+     forward with fused=True.
+Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
+download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
-pipeline's stage times, the grid KNN's and the training's numbers, and as the
-last line {"ok": true, "device": {...}}.
+pipeline's stage times, the grid KNN's, the training's and the transfers'
+numbers, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -244,6 +255,121 @@ def same_skeletons(np, got, ref, what, tol=None):
 
 def skeleton_length(skeleton) -> float:
     return sum(s.length for s in skeleton.skeletons)
+
+
+def transfer_phase(torch, np, cloud, card):
+    """Phase 14 on the bench tree at bf16: the native host dedup against the
+    numpy one on every block, and ModelInference.forward in its three
+    transfer modes (full download, compact, compact + culled) held against
+    each other, with bytes moved and seconds at max_in_flight 1 and 2; then
+    the culled forward with fused=True. Returns the `transfers` line."""
+    from smart_tree_tpu_torch.core import fused_conv, slab_conv
+    from smart_tree_tpu_torch.data.dataset import BlockTiler, voxelize_host, voxelize_host_plain
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.scripts.profile_forward import NumpyTiler, tilings_agree
+    from smart_tree_tpu_torch.utils.maths import cube_filter
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the host dedup: both tilings, then both dedups on every block's crop
+    tiler, tiling_native_s = synced(lambda: BlockTiler(cloud, 0.01, 4.0, 0.4))
+    plain, tiling_numpy_s = synced(lambda: NumpyTiler(cloud, 0.01, 4.0, 0.4))
+    if not tilings_agree(tiler, plain):
+        raise AssertionError("the native and the numpy tilings differ")
+    xyz, rgb = np.asarray(cloud.xyz, np.float32), np.asarray(cloud.rgb, np.float32)
+    native_s = numpy_s = 0.0
+    for centre in tiler.block_centres:
+        m = cube_filter(xyz, centre, 4.0 + 2 * 0.4)
+        data = np.concatenate([xyz[m], rgb[m]], axis=1)
+        got, dt = synced(lambda: voxelize_host(xyz[m], data, 0.01))
+        native_s += dt
+        ref, dt = synced(lambda: voxelize_host_plain(xyz[m], data, 0.01))
+        numpy_s += dt
+        if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"native dedup differs from numpy on the block at {centre}")
+
+    def make(**kw):
+        mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
+        mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
+        return mi
+
+    def counted_forward(mi):
+        """(cloud, seconds, B1 launches, B2 launches, link bytes) of one forward."""
+        mi.link_bytes.update(upload=0, download=0)
+        slab_conv.slab_gather_conv.launches = 0
+        fused_conv.fused_gather_gemm.launches = 0
+        out, dt = synced(lambda: mi.forward(cloud))
+        return (out, dt, slab_conv.slab_gather_conv.launches,
+                fused_conv.fused_gather_gemm.launches, dict(mi.link_bytes))
+
+    modes = {"full": make(compact_transfers=False), "compact": make(),
+             "culled": make(medial_classes=[0])}
+    outs, rows = {}, {}
+    for name, mi in modes.items():
+        mi.forward(cloud)  # warm-up
+        by_window = []
+        for k in (1, 2):
+            mi.max_in_flight = k
+            out, dt, slab_n, _, moved = counted_forward(mi)
+            by_window.append(out)
+            rows.setdefault(name, {})[f"forward_s_in_flight_{k}"] = dt
+        rows[name].update(upload_bytes=moved["upload"], download_bytes=moved["download"],
+                          slab_launches=slab_n, voxels=len(out))
+        for f in ("xyz", "medial_vector", "class_l"):
+            if not np.array_equal(getattr(by_window[0], f), getattr(by_window[1], f)):
+                raise AssertionError(f"{name}: max_in_flight 1 and 2 give different {f}")
+        if name != "full" and slab_n == 0:
+            raise AssertionError(f"the {name} forward never launched the slab kernel")
+        outs[name] = out
+    full, compact, culled = outs["full"], outs["compact"], outs["culled"]
+    for name in ("compact", "culled"):
+        for f in ("xyz", "rgb"):
+            if not np.array_equal(getattr(outs[name], f), getattr(full, f)):
+                raise AssertionError(f"{name} forward: {f} differs from the full download's")
+    # culled against compact: one program on the same inputs
+    np.testing.assert_array_equal(culled.class_l, compact.class_l)
+    branch = compact.class_l[:, 0] == 0
+    np.testing.assert_array_equal(culled.medial_vector[branch], compact.medial_vector[branch])
+    if not (culled.medial_vector[~branch] == 0).all():
+        raise AssertionError("culled forward: a non-medial row has a medial vector")
+    # compact against full: int8 against fp16 residuals on the way up, the
+    # quantised payload on the way down; the JAX package's own bounds for
+    # this pair (tests/test_compact_transfers.py): 99 % of the classes, a
+    # median relative radius difference under 2 %
+    agree = float((compact.class_l == full.class_l).mean())
+    rf = np.linalg.norm(full.medial_vector, axis=1)
+    rc = np.linalg.norm(compact.medial_vector, axis=1)
+    rel = float(np.median(np.abs(rc - rf) / np.maximum(rf, 1e-3)))
+    if agree < 0.99 or rel >= 0.02:
+        raise AssertionError(f"compact vs full: class agreement {agree}, median rel radius {rel}")
+
+    # the culled forward with fused=True: B1 on the tall convs, B2 on the rest
+    fused = make(medial_classes=[0], fused=True)
+    fused.forward(cloud)  # warm-up
+    out_f, fused_s, slab_f, fused_n, _ = counted_forward(fused)
+    if slab_f == 0 or fused_n == 0:
+        raise AssertionError(f"culled fused forward: {slab_f} slab, {fused_n} fused launches")
+    np.testing.assert_array_equal(out_f.xyz, culled.xyz)
+    agree_fused = float((out_f.class_l == culled.class_l).mean())
+    if agree_fused < 0.99:
+        raise AssertionError(f"culled fused vs culled: class agreement {agree_fused}")
+    result = {
+        "card": card, "points": len(cloud), "blocks": len(tiler.blocks),
+        "host_dedup": {"tiling_native_s": tiling_native_s, "tiling_numpy_s": tiling_numpy_s,
+                       "dedup_native_s": native_s, "dedup_numpy_s": numpy_s},
+        "modes": rows,
+        "compact_vs_full": {"class_agreement": agree, "median_rel_radius": rel},
+        "culled_branch_rows": int(branch.sum()),
+        "culled_fused": {"forward_s": fused_s, "slab_launches": slab_f,
+                         "fused_launches": fused_n, "class_agreement": agree_fused},
+    }
+    log(f"transfers: {result}")
+    return result
 
 
 def main() -> int:
@@ -800,6 +926,9 @@ def main() -> int:
     training.update(fit_smoke_card=fit_card.tolist(), fit_smoke_cpu=fit_cpu.tolist())
     log(f"fit_smoke card {fit_card} cpu {fit_cpu}")
 
+    # 14. the input side and the transfer paths on the bench tree, bf16
+    transfers = transfer_phase(torch, np, cloud, card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -819,12 +948,14 @@ def main() -> int:
             "shapes": rows,
         }
 
+    culled_launches = transfers["culled_fused"]
     entries = [
         entry(slab_rows_out,
               name="slab_gather_conv", route="cuda",
               source="smart_tree_tpu_torch/csrc/slab_conv.cu",
               replaces="smart_tree_tpu/core/pallas_slab.py:269",
               launches=slab_launches, launches_per_forward=slab_per_forward,
+              launches_per_culled_forward=transfers["modes"]["culled"]["slab_launches"],
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -832,6 +963,7 @@ def main() -> int:
               source="smart_tree_tpu_torch/csrc/fused_conv.cu",
               replaces="smart_tree_tpu/core/pallas_ops.py:86",
               launches=fused_launches, launches_per_forward=fused_per_forward,
+              launches_per_culled_fused_forward=culled_launches["fused_launches"],
               forward_kernel_ms=fused_forward_ms),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
@@ -852,6 +984,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe_stats}), flush=True)
     print(json.dumps({"grid_knn": grid_stats}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"transfers": transfers}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -8,12 +8,17 @@ The JAX package holds keys as uint32. PyTorch has no general uint32 sort, so
 the port holds the SAME key values in int64: every valid key is below 2**32
 and `INVALID_KEY` (0xFFFFFFFF) still sorts after every valid key. Sorts are
 stable, so the sort permutation equals the JAX one entry for entry.
+
+`pack_coords_np` is the host twin: numpy uint32 keys bit-equal to the JAX
+package's and to this module's int64 keys, so the host can sort an upload
+in the device's order and rebuild that order after a download.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 INVALID_KEY = 0xFFFFFFFF
@@ -144,3 +149,56 @@ def unique_keys(
     )
     first_idx = torch.where(pad, n, first_idx).to(torch.int32)
     return ukeys, first_idx, inverse, count
+
+
+def pack_coords_np(
+    coords: np.ndarray,
+    spatial_shape: Sequence[int],
+    batch_size: int,
+    valid: np.ndarray | None = None,
+) -> np.ndarray:
+    """Host twin of `pack_coords`: uint32 keys [N] whose values equal the
+    device's int64 keys (INVALID_KEY for out-of-range or invalid rows).
+
+    The compact inference paths sort their upload by these keys on the host
+    and rebuild the device's row order from them after the download: a
+    stable argsort of equal key arrays is one permutation, so
+    `np.argsort(keys, kind="stable")` is `torch.sort(keys, stable=True)`'s
+    order."""
+    _, bx, by, bz = key_bits(spatial_shape, batch_size)
+    c = np.asarray(coords, np.int64)
+    in_range = (
+        (c[:, 0] >= 0)
+        & (c[:, 0] < batch_size)
+        & (c[:, 1] >= 0)
+        & (c[:, 1] < spatial_shape[0])
+        & (c[:, 2] >= 0)
+        & (c[:, 2] < spatial_shape[1])
+        & (c[:, 3] >= 0)
+        & (c[:, 3] < spatial_shape[2])
+    )
+    if valid is not None:
+        in_range = in_range & np.asarray(valid, bool)
+    key = (
+        (c[:, 0] << (bx + by + bz))
+        | (c[:, 1] << (by + bz))
+        | (c[:, 2] << bz)
+        | c[:, 3]
+    ).astype(np.uint32)
+    return np.where(in_range, key, np.uint32(INVALID_KEY))
+
+
+def ravel_hash_np(x: np.ndarray) -> np.ndarray:
+    """Row-major hash of integer rows [N, D] after shifting each column to
+    start at 0 (the reference `ravel_hash` semantics); for tests and tools."""
+    if x.ndim != 2:
+        raise ValueError(f"expected rows [N, D], got shape {x.shape}")
+    x = x - np.min(x, axis=0)
+    x = x.astype(np.uint64, copy=False)
+    xmax = np.max(x, axis=0).astype(np.uint64) + 1
+    h = np.zeros(x.shape[0], dtype=np.uint64)
+    for k in range(x.shape[1] - 1):
+        h += x[:, k]
+        h *= xmax[k + 1]
+    h += x[:, -1]
+    return h

@@ -24,6 +24,8 @@ from typing import Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 
+from .. import native
+from ..core.coords import INVALID_KEY, pack_coords_np
 from ..utils.maths import cube_filter
 from .cloud import Cloud
 from .file import load_cloud
@@ -36,6 +38,12 @@ def _ceil_pow2(n: int, floor: int = 1024) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def stage_rows(n: int, capacity: int, granularity: int) -> int:
+    """Rows of a batch that cross the link: n rounded up to `granularity`
+    (at least one step), at most the capacity."""
+    return min(capacity, -(-max(n, 1) // granularity) * granularity)
 
 
 class VoxelBatch(NamedTuple):
@@ -62,17 +70,87 @@ class VoxelBatch(NamedTuple):
         res = (self.feats[:, :3] - centre).astype(np.float16)
         return self.coords.astype(np.int16), res, self.origins.astype(np.float32)
 
+    @property
+    def n_valid(self) -> int:
+        """Number of real voxel rows. Valid rows are a PREFIX of the buffer
+        (collate / collate_blocks fill from row 0); the compact uploads rely
+        on it, so anything else raises."""
+        n = int(self.valid.sum())
+        if not bool(self.valid[:n].all()):
+            raise ValueError("valid rows are not a prefix of the batch")
+        return n
+
+    def key_order(self):
+        """(packed keys, their stable sort order, number of active rows): the
+        row order of the device's sorted tensor, rebuilt on the host from the
+        bit-equal key packing; active rows are the sorted prefix."""
+        keys = pack_coords_np(self.coords, self.spatial_shape, self.batch_size, valid=self.valid)
+        order = np.argsort(keys, kind="stable")
+        return keys, order, int((keys != np.uint32(INVALID_KEY)).sum())
+
+    def _residuals(self, rows, res_dtype) -> np.ndarray:
+        """Residuals of `rows` from their voxel centres, as fp16, or as int8
+        steps of voxel_size / 254 clipped to +-127."""
+        b = np.clip(self.coords[rows, 0], 0, len(self.origins) - 1)
+        centre = self.origins[b] + (self.coords[rows, 1:] + 0.5) * self.voxel_size
+        res = self.feats[rows, :3] - centre
+        if res_dtype == np.int8:
+            return np.clip(np.round(res / (self.voxel_size / 254.0)), -127, 127).astype(np.int8)
+        return res.astype(res_dtype)
+
+    def compact_upload(self, granularity: int = 4096, res_dtype=np.float16):
+        """Valid-rows-only staging of the compressed upload: (coords16
+        [stage,4], res [stage,3], origins, n_valid), stage = n_valid rounded
+        up to `granularity`; the padded tail of the batch never crosses the
+        link. res_dtype=np.int8 quantises residuals to voxel_size / 254 steps
+        (for absolute-xyz models; 'local' models divide residuals by
+        voxel_size and keep fp16)."""
+        assert self.origins is not None and self.voxel_size > 0
+        n = self.n_valid
+        rows = np.arange(stage_rows(n, len(self.coords), granularity))
+        res = self._residuals(rows, res_dtype)
+        return self.coords[rows].astype(np.int16), res, self.origins.astype(np.float32), n
+
+    def compact_upload_sorted(self, granularity: int = 4096, res_dtype=np.float16,
+                              with_mask: bool = False):
+        """compact_upload PRE-SORTED by packed voxel key on the host: (skeys
+        [stage] uint32 ascending, res [stage,3], origins, n_active[, bits]).
+
+        The keys replace the int16 coords (4 B a voxel instead of 8) and are
+        the order the device would sort by, so the device skips its sort and
+        gather: active rows arrive as the [:n_active] prefix and coords are
+        unpacked from the keys. with_mask=True adds the interior mask of the
+        staged sorted rows packed to bits (np.packbits), which the download
+        cull needs on the device."""
+        assert self.origins is not None and self.voxel_size > 0
+        keys, order, n_act = self.key_order()
+        sel = order[: stage_rows(n_act, len(self.coords), granularity)]
+        out = (keys[sel], self._residuals(sel, res_dtype), self.origins.astype(np.float32), n_act)
+        if with_mask:
+            return out + (np.packbits(self.mask[sel]),)
+        return out
+
 
 def voxelize_host(
     xyz: np.ndarray, data: np.ndarray, voxel_size: float
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Floor-quantise against the min corner and keep the first point per
-    voxel (np.unique semantics). Returns (coords lex-sorted, data of the
-    survivors, grid origin)."""
+    voxel, through the native hash dedup (`native/st_native.cpp`; its build
+    raises on failure, there is no quiet numpy fallback). Returns (coords
+    lex-sorted, data of the survivors, grid origin), equal to
+    `voxelize_host_plain`."""
     origin = xyz.min(axis=0).astype(np.float32)
-    g = np.floor((xyz - origin) / voxel_size).astype(np.int32)
-    _, first = np.unique(g, axis=0, return_index=True)
-    return g[first], data[first], origin
+    coords, first = native.voxelize(xyz, voxel_size, origin)
+    return coords, data[first], origin
+
+
+def voxelize_host_plain(
+    xyz: np.ndarray, data: np.ndarray, voxel_size: float
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """numpy version of `voxelize_host` (np.unique semantics)."""
+    origin = xyz.min(axis=0).astype(np.float32)
+    coords, first = native.voxelize_plain(xyz, voxel_size, origin)
+    return coords, data[first], origin
 
 
 def _feature(cloud: Cloud, name: str) -> np.ndarray:
@@ -244,7 +322,11 @@ class Block:
 
 
 class BlockTiler:
-    """Spatial tiling with halos into bucketed padded batches."""
+    """Spatial tiling with halos into bucketed padded batches. Each block is
+    voxelised by `dedup` (`voxelize_host`; a subclass may name
+    `voxelize_host_plain` to time the numpy version)."""
+
+    dedup = staticmethod(voxelize_host)
 
     def __init__(
         self,
@@ -286,7 +368,7 @@ class BlockTiler:
         for centre in self.block_centres:
             m = cube_filter(xyz, centre, block_size + 2 * buffer_size)
             bxyz, brgb = xyz[m], rgb[m]
-            coords, data, origin = voxelize_host(
+            coords, data, origin = self.dedup(
                 bxyz, np.concatenate([bxyz, brgb], axis=1), voxel_size
             )
             interior = cube_filter(data[:, :3], centre, block_size)

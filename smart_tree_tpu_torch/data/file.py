@@ -1,13 +1,16 @@
-"""File IO: npz (synthetic-trees schema) and PLY clouds, linesets and meshes.
+"""File IO: clouds in (npz, PLY, PCD, xyz / pts / txt, OBJ); npz skeletons and
+PLY clouds, linesets and meshes out.
 
 Counterpart of `smart_tree_tpu/data/file.py`: the npz schema is xyz / rgb /
 medial_vector (legacy "vector") / class_l plus flattened skeleton arrays; the
-PLY writers give the same bytes as the JAX package's. Readers for .pcd,
-.xyz and .obj clouds are not ported.
+PLY writers give the same bytes as the JAX package's. `load_cloud` also
+reads .pcd (ascii, binary, LZF binary_compressed), .xyz / .pts / .txt and
+.obj clouds (the JAX package's readers, ported), without open3d.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -217,15 +220,191 @@ def load_ply_cloud(path) -> Cloud:
     return Cloud(xyz=xyz, rgb=rgb)
 
 
+def _lzf_decompress(data: bytes, expected: int) -> bytes:
+    """Pure-python libLZF decompressor (PCL's binary_compressed codec).
+
+    Control byte < 32 -> literal run of ctrl+1 bytes; otherwise a back
+    reference of (ctrl>>5)+2 bytes (+1 extension byte when the 3-bit length
+    saturates) at offset ((ctrl&0x1f)<<8 | next)+1."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        ctrl = data[i]
+        i += 1
+        if ctrl < 32:
+            run = ctrl + 1
+            out += data[i : i + run]
+            i += run
+        else:
+            length = ctrl >> 5
+            if length == 7:
+                length += data[i]
+                i += 1
+            ref = len(out) - (((ctrl & 0x1F) << 8) | data[i]) - 1
+            i += 1
+            for _ in range(length + 2):  # may overlap itself
+                out.append(out[ref])
+                ref += 1
+    if len(out) != expected:
+        raise ValueError(f"LZF: expected {expected} bytes, got {len(out)}")
+    return bytes(out)
+
+
+def load_pcd_cloud(path) -> Cloud:
+    """PCD reader: ascii / binary / binary_compressed, PCL's packed-float
+    rgb or separate r / g / b fields; NaN rows (organised clouds) dropped."""
+    typemap = {
+        ("F", 4): "<f4", ("F", 8): "<f8",
+        ("I", 1): "i1", ("I", 2): "<i2", ("I", 4): "<i4", ("I", 8): "<i8",
+        ("U", 1): "u1", ("U", 2): "<u2", ("U", 4): "<u4", ("U", 8): "<u8",
+    }
+    with open(path, "rb") as f:
+        fields, sizes, types, counts = [], [], [], []
+        n_points, data_mode = 0, None
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: no DATA line in PCD header")
+            parts = line.split()
+            if not parts or parts[0] == b"#":
+                continue
+            key = parts[0].upper()
+            if key == b"FIELDS":
+                fields = [p.decode() for p in parts[1:]]
+            elif key == b"SIZE":
+                sizes = [int(p) for p in parts[1:]]
+            elif key == b"TYPE":
+                types = [p.decode() for p in parts[1:]]
+            elif key == b"COUNT":
+                counts = [int(p) for p in parts[1:]]
+            elif key == b"POINTS":
+                n_points = int(parts[1])
+            elif key == b"WIDTH" and n_points == 0:
+                n_points = int(parts[1])
+            elif key == b"HEIGHT" and n_points and int(parts[1]) > 1:
+                pass  # POINTS (or WIDTH*HEIGHT) already captured
+            elif key == b"DATA":
+                data_mode = parts[1].decode()
+                break
+        if not counts:
+            counts = [1] * len(fields)
+        names, dts = [], []
+        for name, size, t, cnt in zip(fields, sizes, types, counts):
+            for c in range(cnt):
+                names.append(name if cnt == 1 else f"{name}_{c}")
+                dts.append(typemap[(t, size)])
+        dtype = np.dtype(list(zip(names, dts)))
+
+        if data_mode == "ascii":
+            rec = np.loadtxt(f, dtype=dtype, max_rows=n_points)
+            rec = np.atleast_1d(rec)
+        elif data_mode == "binary":
+            rec = np.frombuffer(
+                f.read(dtype.itemsize * n_points), dtype=dtype, count=n_points
+            )
+        elif data_mode == "binary_compressed":
+            comp_size, uncomp_size = np.frombuffer(f.read(8), "<u4")
+            raw = _lzf_decompress(f.read(int(comp_size)), int(uncomp_size))
+            # compressed PCD stores fields SoA: all x, then all y, ...
+            rec = np.empty(n_points, dtype=dtype)
+            off = 0
+            for name, dt in zip(names, dts):
+                itemsize = np.dtype(dt).itemsize
+                rec[name] = np.frombuffer(
+                    raw[off : off + itemsize * n_points], dtype=dt
+                )
+                off += itemsize * n_points
+        else:
+            raise ValueError(f"unsupported PCD DATA mode {data_mode}")
+
+    xyz = np.stack([rec["x"], rec["y"], rec["z"]], axis=1).astype(np.float32)
+    finite = np.isfinite(xyz).all(axis=1)  # organized clouds pad with NaN
+    rgb = None
+    if "rgb" in names or "rgba" in names:
+        key = "rgb" if "rgb" in names else "rgba"
+        packed = rec[key]
+        if packed.dtype.kind == "f":  # PCL packs bytes into a float
+            packed = packed.view(np.uint32)
+        rgb = np.stack(
+            [(packed >> 16) & 0xFF, (packed >> 8) & 0xFF, packed & 0xFF], axis=1
+        ).astype(np.float32) / 255.0
+    elif {"r", "g", "b"} <= set(names):
+        rgb = np.stack([rec["r"], rec["g"], rec["b"]], axis=1).astype(np.float32)
+        if rec["r"].dtype == np.uint8:
+            rgb /= 255.0
+    if rgb is None:
+        rgb = np.zeros_like(xyz)  # zero rgb when absent
+    return Cloud(xyz=xyz[finite], rgb=rgb[finite])
+
+
+def _cloud_from_columns(cols: np.ndarray) -> Cloud:
+    """xyz [+ rgb] from a float column matrix (shared by .xyz/.pts/.obj).
+    Trailing columns beyond 3 are treated as rgb when there are >= 3 of
+    them (last 3 taken, so `x y z i r g b` .pts rows work); 0-255 colors
+    are normalized."""
+    xyz = cols[:, :3].astype(np.float32)
+    rgb = None
+    if cols.shape[1] >= 6:
+        rgb = cols[:, -3:].astype(np.float32)
+        if rgb.size and rgb.max() > 1.0:
+            rgb = rgb / 255.0
+    if rgb is None:
+        rgb = np.zeros_like(xyz)  # zero rgb when absent
+    finite = np.isfinite(xyz).all(axis=1)
+    return Cloud(xyz=xyz[finite], rgb=rgb[finite])
+
+
+def load_xyz_cloud(path) -> Cloud:
+    """Whitespace-separated `x y z [r g b]` rows (.xyz / .pts; a leading
+    bare point-count line, common in .pts, is skipped)."""
+    with open(path) as f:
+        first = f.readline().split()
+        skip = 1 if len(first) == 1 else 0
+    cols = np.loadtxt(path, dtype=np.float64, skiprows=skip, ndmin=2)
+    return _cloud_from_columns(cols)
+
+
+def load_obj_cloud(path) -> Cloud:
+    """Vertex positions (+ per-vertex colors when present) from a Wavefront
+    .obj; faces, normals and texture coordinates are skipped."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                rows.append([float(t) for t in line.split()[1:7]])
+    if not rows:
+        return Cloud(xyz=np.zeros((0, 3), np.float32),
+                     rgb=np.zeros((0, 3), np.float32))
+    width = min(len(r) for r in rows)
+    cols = np.asarray([r[:width] for r in rows], np.float64)
+    return _cloud_from_columns(cols)
+
+
 def load_cloud(path) -> Cloud:
-    """Load a .npz or .ply cloud."""
+    """Load a .npz (synthetic-trees schema), .ply, .pcd, .xyz / .pts / .txt
+    or .obj cloud. Any other suffix raises ValueError: the port does not read
+    through open3d."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as data:
             cld = Cloud.from_numpy(**{k: data[k] for k in data.files})
     elif path.suffix == ".ply":
         cld = load_ply_cloud(path)
+    elif path.suffix == ".pcd":
+        cld = load_pcd_cloud(path)
+    elif path.suffix in (".xyz", ".pts", ".txt"):
+        cld = load_xyz_cloud(path)
+    elif path.suffix == ".obj":
+        cld = load_obj_cloud(path)
     else:
-        raise ValueError(f"unsupported cloud format {path.suffix} (npz and ply are ported)")
+        raise ValueError(
+            f"unsupported cloud format {path.suffix} (npz/ply/pcd/xyz/"
+            "pts/obj are built in; others need open3d)"
+        )
     cld.filename = path
     return cld
+
+
+def load_json(path):
+    with open(path) as f:
+        return json.load(f)

@@ -1,14 +1,32 @@
 """Model inference: block-tiled, bucketed sparse-UNet forward.
 
-Counterpart of `smart_tree_tpu/infer/inference.py::ModelInference` on its
-full-download, single-device path (`compact_transfers=False`): each batch
-uploads int16 voxel coords plus fp16 residuals (xyz is rebuilt on the
-device, as in the JAX package), builds the plan, runs SmartTree, and retries a batch with counts-driven level
-capacities when a level overflowed. Unlike the JAX path, predictions come
-back at full precision (fp32 radius, direction and class logits) instead of
-fp16 / int8. `medial_classes` has the JAX package's meaning (rows of any
-other class come back with medial_vector = 0) but is applied on the host
-after the download; the culled transfer itself is not ported.
+Counterpart of `smart_tree_tpu/infer/inference.py::ModelInference` on one
+device, with its three transfer modes:
+
+  compact + culled  (`compact_transfers=True` and `medial_classes`, the
+      default configuration): each batch uploads host-sorted packed keys
+      (int32 bit patterns of the uint32 keys, 4 B a voxel), int8 residuals
+      for absolute-xyz models (fp16 for 'local' ones) and the interior mask
+      as bits, only the rows that hold a voxel; the device pads them to the
+      batch capacity, unpacks coords from the keys (no device sort), runs the
+      plan and SmartTree, quantises the heads (`compress_preds`) and
+      partitions the rows, so that only the interior rows' int8 class and the
+      medial-class rows' fp16 radius and int8 direction come back. Rows of
+      any other class get medial_vector = 0.
+  compact  (`compact_transfers=True`, `medial_classes=None`): the same
+      upload; every active row's quantised heads come back.
+  full download  (`compact_transfers=False`): int16 coords and fp16
+      residuals up, device sort, fp32 heads and the sort order back; the
+      class filter of `medial_classes` is applied on the host.
+      `predict()` always takes this path: full-precision heads for
+      inspection (the JAX package quantises this path too).
+
+A batch whose UNet level overflowed reruns the same mode with counts-driven
+level capacities. `max_in_flight` batches are queued before the host
+collects the oldest: the run half of every mode only queues work (pinned
+uploads, a device-side partition, downloads into pinned buffers on a copy
+stream that waits for an event of its own batch), and the host waits for that
+batch's event only, so collecting batch i overlaps batch i+1 on the card.
 
 The forward runs eagerly; `precision` ("float32" or "bfloat16") and the
 batch capacity reach every conv as arguments (core/sparse_ops.py). With
@@ -18,47 +36,97 @@ kernel, like the JAX package under SMART_TREE_TPU_PALLAS=1.
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.coords import INVALID_KEY, pack_coords, sort_keys
+from ..core.coords import INVALID_KEY, pack_coords, sort_keys, unpack_keys
 from ..core.memory import max_capacity_for_budget
 from ..core.plan import build_plan
 from ..core.sparse_ops import ConvConfig
 from ..core.sparse_tensor import SparseVoxelTensor
 from ..data.cloud import Cloud
-from ..data.dataset import BlockTiler
+from ..data.dataset import BlockTiler, stage_rows
 from ..device import resolve_device
 from ..nn.convert import load_model, load_npz
 
-# The JAX package's default device budget and in-flight batch count, kept so
-# that batches are cut exactly as the reference cuts them (this port runs one
-# batch at a time; re-budgeting for a larger card is later work).
-BATCH_BUDGET_BYTES = 12 << 30
-BATCH_BUDGET_IN_FLIGHT = 2
+
+def compress_preds(preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The download payload: fp16 radius, the unit direction in int8 steps
+    of 1/127 (round, clipped to +-127) and the argmax class as int8."""
+    q = torch.clamp(torch.round(preds["direction"].float() * 127.0), -127, 127)
+    return {
+        "radius": preds["radius"].to(torch.float16),
+        "direction": q.to(torch.int8),
+        "class_l": torch.argmax(preds["class_l"], dim=1).to(torch.int8),
+    }
 
 
-def _decode_xyz(coords16, res16, origins, voxel_size: float):
-    """fp32 xyz from int16 coords, fp16 residuals from the voxel centre and
-    per-item fp32 grid origins (VoxelBatch.compressed_xyz_upload)."""
-    coords = coords16.to(torch.int32)
+def decode_direction(q: np.ndarray) -> np.ndarray:
+    """Host inverse of compress_preds' int8 direction: dequantise and
+    renormalise onto the unit sphere."""
+    d = np.asarray(q, np.float32) / 127.0
+    n = np.linalg.norm(d, axis=-1, keepdims=True)
+    return d / np.maximum(n, 1e-8)
+
+
+def _features(coords, res16, origins, voxel_size: float, mode: str):
+    """Input features from int32 coords [N,4] (b,x,y,z), fp16 residuals from
+    the voxel centres and per-item fp32 grid origins: "xyz" (absolute
+    coordinates, 3 channels) or "local" (residual / voxel_size and absolute
+    y, 4 channels)."""
     bi = coords[:, 0].clamp(0, origins.shape[0] - 1).long()
-    xyz = origins[bi] + (coords[:, 1:].to(torch.float32) + 0.5) * voxel_size
-    return coords, xyz + res16.to(torch.float32)
+    centre = origins[bi] + (coords[:, 1:].to(torch.float32) + 0.5) * voxel_size
+    xyz = centre + res16.to(torch.float32)
+    if mode == "local":
+        return torch.cat([res16.to(torch.float32) / voxel_size, xyz[:, 1:2]], dim=1)
+    return xyz
 
 
 def make_features(coords16, res16, origins, voxel_size: float, mode: str):
-    """Input features: "xyz" (absolute coordinates, 3 channels) or "local"
-    (residual / voxel_size and absolute y, 4 channels)."""
-    coords, xyz = _decode_xyz(coords16, res16, origins, voxel_size)
-    if mode == "local":
-        feats = torch.cat([res16.to(torch.float32) / voxel_size, xyz[:, 1:2]], dim=1)
-    else:
-        feats = xyz
-    return coords, feats
+    """(int32 coords, features) from the full-download upload
+    (VoxelBatch.compressed_xyz_upload)."""
+    coords = coords16.to(torch.int32)
+    return coords, _features(coords, res16, origins, voxel_size, mode)
+
+
+def _unpack_bits(bits: torch.Tensor, count: int) -> torch.Tensor:
+    """np.unpackbits(bits, count=count) as a bool tensor (big-endian bits)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    return ((bits.to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[:count].bool()
+
+
+class _Download:
+    """Device -> host copies queued now and read later. On a card they go
+    into pinned buffers on `stream` after the event `ready`, so that reading
+    them waits for this batch's work and copies only, never for batches
+    queued behind it; on the CPU the tensors are the result."""
+
+    def __init__(self, tensors, stream=None, ready=None):
+        self.done = None
+        self.ready = ready
+        if stream is None:
+            self.arrays = [t.numpy() for t in tensors]
+            return
+        self.arrays = []
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            for t in tensors:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+                self.arrays.append(buf)
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+
+    def get(self) -> list:
+        if self.done is None:
+            return self.arrays
+        self.done.synchronize()
+        return [b.numpy() for b in self.arrays]
 
 
 class ModelInference:
@@ -70,9 +138,15 @@ class ModelInference:
         buffer_size: float = 0.4,
         batch_size: int = 4,
         precision: str = "float32",
+        model_path: str | Path | None = None,  # reference-config compatibility (unused)
+        num_workers: int = 0,  # reference-config compatibility (unused)
         level_capacity_factor: float = 0.5,
-        fused: bool = False,
+        max_in_flight: int = 2,
+        hbm_budget_bytes: int = 12 << 30,
+        compact_transfers: bool = True,
+        upload_granularity: int = 4096,
         medial_classes: Sequence[int] | None = None,
+        fused: bool = False,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)  # TF32 off on a card
@@ -89,30 +163,64 @@ class ModelInference:
         self.precision = precision
         self.fused = fused
         self.level_capacity_factor = level_capacity_factor
+        self.max_in_flight = max_in_flight
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.compact_transfers = compact_transfers
+        self.upload_granularity = upload_granularity
         self.model = load_model(load_npz(weights_path), self.device)
         self.feature_mode = "local" if self.model.input_channels == 4 else "xyz"
-        # same batch sizing as the JAX package: the largest pow2 capacity
-        # whose estimated forward peak fits the budget at factor 1.0 (the
-        # overflow-retry worst case)
+        # absolute-xyz models take int8 residuals on the compact upload;
+        # 'local' models divide residuals by the voxel size and keep fp16
+        self.res_dtype = np.float16 if self.feature_mode == "local" else np.int8
+        # the largest pow2 batch capacity whose estimated forward peak fits
+        # the budget at factor 1.0 (the overflow-retry worst case) with
+        # max_in_flight batches queued, as in the JAX package
         self.max_batch_capacity = max_capacity_for_budget(
-            BATCH_BUDGET_BYTES,
+            hbm_budget_bytes,
             self.model.unet_planes,
             factor=1.0,
-            in_flight=BATCH_BUDGET_IN_FLIGHT,
+            in_flight=max(1, max_in_flight),
         )
+        # running totals of the bytes each forward moved over the link; the
+        # caller reads and resets them
+        self.link_bytes = {"upload": 0, "download": 0}
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
+
+    # -- transfers ---------------------------------------------------------
+
+    def _upload(self, *arrays):
+        """Host arrays to the device. On a card from pinned memory without
+        waiting: the copy is ordered on the current stream."""
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            self.link_bytes["upload"] += t.nbytes
+            if self._copy_stream is not None:
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t)
+        return out
+
+    def _download(self, tensors, ready=None) -> _Download:
+        """Queue the download of `tensors` after `ready`, by default an event
+        recorded now on the current stream, after the kernels that wrote them
+        (the download keeps it as `.ready` for later downloads of the same
+        batch)."""
+        self.link_bytes["download"] += sum(t.nbytes for t in tensors)
+        if self._copy_stream is not None and ready is None:
+            ready = torch.cuda.Event()
+            ready.record()
+        return _Download(tensors, self._copy_stream, ready)
+
+    # -- the full-download path ----------------------------------------------
 
     def _plan_batch(self, vb, level_caps: Tuple[int, ...] | None = None):
         """Upload one batch (int16 coords, fp16 residuals, origins) and build
         its sorted input tensor and UNet plan on the device: (x, plan, order)."""
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        c16, res, orig = vb.compressed_xyz_upload()
-        coords, fv = make_features(
-            dev(c16), dev(res), dev(orig), self.voxel_size, self.feature_mode
-        )
-        keys = pack_coords(coords, vb.spatial_shape, vb.batch_size, valid=dev(vb.valid))
+        c16, res, orig, valid = self._upload(*vb.compressed_xyz_upload(), vb.valid)
+        coords, fv = make_features(c16, res, orig, self.voxel_size, self.feature_mode)
+        keys = pack_coords(coords, vb.spatial_shape, vb.batch_size, valid=valid)
         skeys, order = sort_keys(keys)
         active = skeys != INVALID_KEY
         feats = torch.where(active[:, None], fv[order], 0.0)
@@ -125,15 +233,23 @@ class ModelInference:
         )
         return x, plan, order
 
-    @torch.no_grad()
-    def _run_batch(self, vb, level_caps: Tuple[int, ...] | None = None):
-        """One batch on the device: (preds, order, active, counts, caps)."""
-        x, plan, order = self._plan_batch(vb, level_caps)
+    def _unet(self, x, plan):
+        """SmartTree on one planned batch: (fp32-or-bf16 heads, level counts,
+        level capacities)."""
         cfg = ConvConfig(self.precision, cap_hint=x.capacity, fused=self.fused)
         preds = self.model(plan, x.feats, cfg)
         counts = torch.stack([lv.count for lv in plan.levels])
         caps = tuple(lv.keys.shape[0] for lv in plan.levels)
-        return preds, order, x.active, counts, caps
+        return preds, counts, caps
+
+    @torch.no_grad()
+    def _run_batch(self, vb, level_caps: Tuple[int, ...] | None = None):
+        """Queue one full-download batch: (download of counts, sort order,
+        active mask and the fp32 heads; level capacities)."""
+        x, plan, order = self._plan_batch(vb, level_caps)
+        preds, counts, caps = self._unet(x, plan)
+        heads = [preds[k].float() for k in ("radius", "direction", "class_l")]
+        return self._download([counts, order, x.active, *heads]), caps
 
     @staticmethod
     def _retry_caps(counts, caps) -> Tuple[int, ...]:
@@ -149,35 +265,195 @@ class ModelInference:
             out.append(cap2)
         return tuple(out)
 
+    def _retry(self, counts, caps, attempt: int):
+        """None when no level overflowed, else the level capacities of the
+        rerun; raises when the overflow persists."""
+        counts = np.asarray(counts)
+        if not bool(np.any(counts > np.asarray(caps))):
+            return None
+        if attempt >= len(self.model.unet_planes):
+            raise RuntimeError(
+                f"UNet level buffer overflow persists after {attempt} "
+                f"counts-driven retries (counts {counts} vs capacities {caps})"
+            )
+        return self._retry_caps(counts, caps)
+
     def _collect(self, vb, out, sinks, attempt: int = 0):
-        """Download one batch's results into the sinks, rerunning the batch
-        with counts-driven level capacities when a level overflowed."""
-        preds, order, active, counts, caps = out
-        counts = counts.cpu().numpy()
-        if bool(np.any(counts > np.asarray(caps))):
-            if attempt >= len(self.model.unet_planes):
-                raise RuntimeError(
-                    f"UNet level buffer overflow persists after {attempt} "
-                    f"counts-driven retries (counts {counts} vs capacities {caps})"
-                )
-            out = self._run_batch(vb, level_caps=self._retry_caps(counts, caps))
-            return self._collect(vb, out, sinks, attempt + 1)
-        order = order.cpu().numpy()
-        keep = active.cpu().numpy() & vb.mask[order]
+        """Read one full-download batch into the sinks (xyzrgb, radius,
+        direction, class logits), rerunning it if a level overflowed."""
+        fetch, caps = out
+        counts, order, active, radius, direction, logits = fetch.get()
+        retry = self._retry(counts, caps, attempt)
+        if retry is not None:
+            return self._collect(vb, self._run_batch(vb, level_caps=retry), sinks, attempt + 1)
+        keep = active & vb.mask[order]
         out_xyzrgb, out_radius, out_dir, out_class = sinks
         out_xyzrgb.append(vb.feats[order[keep]][:, :6])
-        out_radius.append(preds["radius"].float().cpu().numpy()[keep])
-        out_dir.append(preds["direction"].float().cpu().numpy()[keep])
-        out_class.append(preds["class_l"].float().cpu().numpy()[keep])
+        out_radius.append(radius[keep])
+        out_dir.append(direction[keep])
+        out_class.append(logits[keep])
 
-    def predict(self, cloud: Cloud) -> Dict[str, np.ndarray]:
-        """Per-voxel predictions for the interior voxels of every block:
-        xyz, rgb, radius [n,1] (log radius), direction [n,3], class_logits."""
+    # -- the compact and culled paths ----------------------------------------
+
+    def _pad_sorted(self, skeys, res, cap: int):
+        """Extend a staged sorted upload to the batch capacity on the device:
+        int32 key bit patterns widened to the int64-held uint32 keys,
+        INVALID_KEY past the stage (sorts last, reads inactive), int8
+        residuals dequantised to fp16 as the JAX package does, zero
+        residuals past the stage."""
+        stage = skeys.shape[0]
+        keys = torch.full((cap,), INVALID_KEY, dtype=torch.int64, device=skeys.device)
+        keys[:stage] = skeys.to(torch.int64) & 0xFFFFFFFF
+        if res.dtype == torch.int8:
+            res = (res.to(torch.float32) * (self.voxel_size / 254.0)).to(torch.float16)
+        r = torch.zeros((cap, 3), dtype=torch.float16, device=skeys.device)
+        r[:stage] = res
+        return keys, r
+
+    def _forward_sorted(self, vb, level_caps, skeys, res, origins):
+        """The forward over a host-sorted staged upload: the keys are the
+        sort order, so coords come from `unpack_keys` and there is no device
+        sort or gather. (quantised heads, counts, caps, active)."""
+        keys, r = self._pad_sorted(skeys, res, len(vb.coords))
+        active = keys != INVALID_KEY
+        coords = unpack_keys(keys, vb.spatial_shape, vb.batch_size)
+        fv = _features(coords, r, origins, self.voxel_size, self.feature_mode)
+        feats = torch.where(active[:, None], fv, 0.0)
+        x = SparseVoxelTensor(keys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
+        plan = build_plan(
+            x,
+            len(self.model.unet_planes),
+            level_capacity_factor=self.level_capacity_factor,
+            level_capacities=level_caps,
+        )
+        preds, counts, caps = self._unet(x, plan)
+        return compress_preds(preds), counts, caps, active
+
+    @torch.no_grad()
+    def _run_batch_compact(self, vb, level_caps: Tuple[int, ...] | None = None):
+        """Queue one compact batch: (download of counts and the staged rows'
+        quantised heads; level capacities)."""
+        skeys, res, orig, _ = vb.compact_upload_sorted(self.upload_granularity, self.res_dtype)
+        keys_d, res_d, orig_d = self._upload(skeys.view(np.int32), res, orig)
+        preds, counts, caps, _ = self._forward_sorted(vb, level_caps, keys_d, res_d, orig_d)
+        stage = len(skeys)
+        heads = [preds[k][:stage] for k in ("radius", "direction", "class_l")]
+        return self._download([counts, *heads]), caps
+
+    def _collect_compact(self, vb, out, sinks, attempt: int = 0):
+        """Read one compact batch into the sinks (xyzrgb, radius, direction,
+        class), rerunning it if a level overflowed."""
+        fetch, caps = out
+        counts, radius, direction, class_l = fetch.get()
+        retry = self._retry(counts, caps, attempt)
+        if retry is not None:
+            out = self._run_batch_compact(vb, level_caps=retry)
+            return self._collect_compact(vb, out, sinks, attempt + 1)
+        _, order, n_act = vb.key_order()
+        order = order[:n_act]              # active rows are the sorted prefix
+        keep = vb.mask[order]
+        keep_s = np.zeros(len(radius), bool)
+        keep_s[: len(keep)] = keep
+        out_xyzrgb, out_radius, out_dir, out_class = sinks
+        out_xyzrgb.append(vb.feats[order[keep]][:, :6])
+        out_radius.append(radius[keep_s].astype(np.float32))
+        out_dir.append(decode_direction(direction[keep_s]))
+        out_class.append(class_l[keep_s])
+
+    def _partition(self, preds, active, interior):
+        """The download cull on the device: class rows permuted interior-
+        first, radius / direction rows (interior and medial class)-first, both
+        by a stable sort on the complement so kept rows keep their order (the
+        order the host rebuilds), and the medial count."""
+        keep_i = active & interior
+        cls = preds["class_l"]
+        is_med = functools.reduce(torch.logical_or, [cls == c for c in self.medial_classes])
+        keep_m = keep_i & is_med
+        perm_i = torch.sort((~keep_i).to(torch.uint8), stable=True).indices
+        perm_m = torch.sort((~keep_m).to(torch.uint8), stable=True).indices
+        return (cls[perm_i], preds["radius"][perm_m], preds["direction"][perm_m],
+                keep_m.sum(dtype=torch.int64))
+
+    @torch.no_grad()
+    def _run_batch_culled(self, vb, level_caps: Tuple[int, ...] | None = None):
+        """Queue one culled batch: (download of counts + medial count; level
+        capacities; the partitioned class, radius and direction on the
+        device)."""
+        skeys, res, orig, _, bits = vb.compact_upload_sorted(
+            self.upload_granularity, self.res_dtype, with_mask=True)
+        keys_d, res_d, orig_d, bits_d = self._upload(skeys.view(np.int32), res, orig, bits)
+        preds, counts, caps, active = self._forward_sorted(vb, level_caps, keys_d, res_d, orig_d)
+        interior = torch.zeros_like(active)
+        interior[: len(skeys)] = _unpack_bits(bits_d, len(skeys))
+        cls_p, rad_p, dir_p, n_med = self._partition(preds, active, interior)
+        # the counts and the medial count come back in ONE small fetch; the
+        # three downloads are sliced to them in _collect_culled
+        return self._download([torch.cat([counts.to(torch.int64), n_med[None]])]), caps, \
+            (cls_p, rad_p, dir_p)
+
+    def _collect_culled(self, vb, out, sinks, attempt: int = 0):
+        """Read one culled batch into the sinks. The host rebuilds both
+        device permutations from what it has (its mask and key sort for the
+        interior rows, the downloaded classes for the medial rows), so the
+        radius / direction download covers exactly the medial interior rows;
+        the other interior rows get medial_vector = 0."""
+        small, caps, (cls_p, rad_p, dir_p) = out
+        (vals,) = small.get()
+        counts, m = vals[:-1], int(vals[-1])
+        retry = self._retry(counts, caps, attempt)
+        if retry is not None:
+            out = self._run_batch_culled(vb, level_caps=retry)
+            return self._collect_culled(vb, out, sinks, attempt + 1)
+        _, order, n_act = vb.key_order()
+        keep = vb.mask[order[:n_act]]       # the device's keep_i over active rows
+        rows = order[:n_act][keep]          # original rows, sorted order
+        n_i = int(keep.sum())
+        if n_i == 0:
+            return
+        cap = len(vb.coords)
+        g = self.upload_granularity
+        ni_stage, m_stage = stage_rows(n_i, cap, g), stage_rows(m, cap, g)
+        cls_s, r_s, d_s = self._download(
+            [cls_p[:ni_stage], rad_p[:m_stage], dir_p[:m_stage]], small.ready).get()
+        cls = cls_s[:n_i]
+        med = np.isin(cls, np.asarray(self.medial_classes, cls.dtype))
+        if m != int(med.sum()):
+            raise RuntimeError(
+                f"download cull: the device counted {m} medial rows, the host "
+                f"{int(med.sum())} among the downloaded classes")
+        radius = np.zeros((n_i, 1), np.float32)
+        direction = np.zeros((n_i, 3), np.float32)
+        pos = np.flatnonzero(med)
+        radius[pos] = r_s[:m].astype(np.float32)
+        direction[pos] = decode_direction(d_s[:m])
+        out_xyzrgb, out_radius, out_dir, out_class = sinks
+        out_xyzrgb.append(vb.feats[rows][:, :6])
+        out_radius.append(radius)
+        out_dir.append(direction)
+        out_class.append(cls)
+
+    # -- entry points --------------------------------------------------------
+
+    def _windowed(self, cloud: Cloud, run, collect):
+        """Tile the cloud and run every batch with at most max_in_flight
+        batches queued ahead of the one being collected: the sinks."""
         tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
         sinks = ([], [], [], [])
+        window: list = []
         for vb in tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity):
-            self._collect(vb, self._run_batch(vb), sinks)
-        out_xyzrgb, out_radius, out_dir, out_class = sinks
+            window.append((vb, run(vb)))
+            if len(window) >= max(1, self.max_in_flight):
+                collect(*window.pop(0), sinks)
+        for vb, out in window:
+            collect(vb, out, sinks)
+        return sinks
+
+    def predict(self, cloud: Cloud) -> Dict[str, np.ndarray]:
+        """Per-voxel predictions at full precision for the interior voxels of
+        every block, through the full-download path: xyz, rgb, radius [n,1]
+        (log radius), direction [n,3], class_logits."""
+        out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
+            cloud, self._run_batch, self._collect)
         if not out_xyzrgb:
             z = np.zeros((0, 3), np.float32)
             return {"xyz": z, "rgb": z, "radius": np.zeros((0, 1), np.float32),
@@ -191,18 +467,35 @@ class ModelInference:
             "class_logits": np.concatenate(out_class),
         }
 
-    def forward(self, cloud: Cloud) -> Cloud:
+    def forward(self, cloud: Cloud, return_masked: bool = True) -> Cloud:
         """Cloud of interior voxels with medial_vector = exp(radius) *
         direction and the argmax class; with `medial_classes`, rows of any
-        other class have medial_vector = 0."""
-        p = self.predict(cloud)
-        cls = np.argmax(p["class_logits"], axis=1)
-        medial_vector = np.exp(p["radius"]) * p["direction"]
-        if self.medial_classes is not None:
-            medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
+        other class have medial_vector = 0. `return_masked` is accepted for
+        the JAX signature and, as there, unused."""
+        if not self.compact_transfers:
+            p = self.predict(cloud)
+            cls = np.argmax(p["class_logits"], axis=1)
+            medial_vector = np.exp(p["radius"]) * p["direction"]
+            if self.medial_classes is not None:
+                medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
+            xyz, rgb = p["xyz"], p["rgb"]
+        else:
+            if self.medial_classes is not None:
+                run, collect = self._run_batch_culled, self._collect_culled
+            else:
+                run, collect = self._run_batch_compact, self._collect_compact
+            out_xyzrgb, out_radius, out_dir, out_class = self._windowed(cloud, run, collect)
+            if not out_xyzrgb:  # too sparse to form any block
+                z = np.zeros((0, 3), np.float32)
+                return Cloud(xyz=z, rgb=z, medial_vector=z,
+                             class_l=np.zeros((0, 1), np.float32), filename=cloud.filename)
+            xyzrgb = np.concatenate(out_xyzrgb)
+            xyz, rgb = xyzrgb[:, :3], xyzrgb[:, 3:6]
+            medial_vector = np.exp(np.concatenate(out_radius)) * np.concatenate(out_dir)
+            cls = np.concatenate(out_class)
         return Cloud(
-            xyz=p["xyz"],
-            rgb=p["rgb"],
+            xyz=xyz,
+            rgb=rgb,
             medial_vector=medial_vector,
             class_l=cls.reshape(-1, 1).astype(np.float32),
             filename=cloud.filename,

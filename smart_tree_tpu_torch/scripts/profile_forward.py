@@ -1,15 +1,22 @@
 """Where the time goes in one bf16 forward of the bench tree on the card.
 
-    python3 -m smart_tree_tpu_torch.scripts.profile_forward
+    python3 -m smart_tree_tpu_torch.scripts.profile_forward          # the default path
+    python3 -m smart_tree_tpu_torch.scripts.profile_forward --full   # full download
 
 The bench tree and model configuration are chip_smoke.py's (generate_tree
 seed 0, 12 m, 12000 points/m2, 20000 foliage points, noble-elevator-58,
-bf16, batch capacity <= 262144). After one warm-up forward it prints one
-JSON line with:
-  - host phases of one forward, each ended by a device synchronise:
-    block tiling, per batch the plan build (upload, sort, rulebooks), the
-    UNet and the download (which reruns a batch whose level overflowed);
-  - torch.profiler's device time by kernel over a second forward, its sum,
+bf16, batch capacity <= 262144). The default path is the default
+configuration's: compact transfers with the download cull to
+`medial_classes=[0]`; `--full` profiles `compact_transfers=False`. After one
+warm-up forward it prints one JSON line with:
+  - host block tiling with the native dedup (`voxelize_host`) and with the
+    numpy one (`voxelize_host_plain`), and whether the two tilings agree;
+  - per batch, each ended by a device synchronise: the run half (upload,
+    plan, UNet, partition) and the collect half (fetch, download, host
+    reorder; it reruns a batch whose level overflowed), and the bytes the
+    forward moved each way;
+  - whole forwards at max_in_flight 1 and 2;
+  - torch.profiler's device time by kernel over one more forward, its sum,
     and the device's busy share of that forward's wall time (the profiler
     adds host overhead, so the busy share is a lower bound).
 Needs a CUDA card.
@@ -17,23 +24,31 @@ Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..core.sparse_ops import ConvConfig
 from ..data.augmentations import CentreCloud
-from ..data.dataset import BlockTiler
+from ..data.dataset import BlockTiler, voxelize_host_plain
 from ..data.synthetic import generate_tree
 from ..infer.inference import ModelInference
 
 WEIGHTS = Path(__file__).resolve().parents[2] / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
 BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
+MAX_BATCH_CAPACITY = 262144
+
+
+class NumpyTiler(BlockTiler):
+    """The tiler with the numpy dedup, for timing against the native one."""
+
+    dedup = staticmethod(voxelize_host_plain)
 
 
 def _kernel_us(evt) -> float:
@@ -48,13 +63,25 @@ def _kernel_us(evt) -> float:
 
 
 def _sync_time(fn):
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
-def main() -> int:
+def tilings_agree(a: BlockTiler, b: BlockTiler) -> bool:
+    """Equal blocks: voxel coords, features and interior masks, in order."""
+    return len(a.blocks) == len(b.blocks) and all(
+        np.array_equal(x.coords, y.coords) and np.array_equal(x.feats, y.feats)
+        and np.array_equal(x.interior, y.interior) for x, y in zip(a.blocks, b.blocks))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--full", action="store_true",
+                        help="profile compact_transfers=False instead of the default path")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_forward needs a CUDA card", file=sys.stderr)
         return 2
@@ -63,46 +90,51 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cloud = CentreCloud()(generate_tree(**BENCH_TREE)[0])
-    mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16")
-    mi.max_batch_capacity = min(mi.max_batch_capacity, 262144)
-    mi.predict(cloud)  # warm-up
+    mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16",
+                        compact_transfers=not args.full, medial_classes=[0])
+    mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
+    if args.full:
+        run, collect = mi._run_batch, mi._collect
+    else:
+        run, collect = mi._run_batch_culled, mi._collect_culled
+    mi.forward(cloud)  # warm-up
 
-    phases = {"tiling_s": 0.0, "plan_s": 0.0, "unet_s": 0.0, "download_s": 0.0}
-    t_all = time.perf_counter()
-    tiler, dt = _sync_time(lambda: BlockTiler(cloud, 0.01, 4.0, 0.4))
-    batches, dt2 = _sync_time(lambda: list(tiler.batches(4, max_capacity=mi.max_batch_capacity)))
-    phases["tiling_s"] = dt + dt2
+    tiler, native_s = _sync_time(lambda: BlockTiler(cloud, 0.01, 4.0, 0.4))
+    plain, numpy_s = _sync_time(lambda: NumpyTiler(cloud, 0.01, 4.0, 0.4))
+    batches, batch_s = _sync_time(
+        lambda: list(tiler.batches(4, max_capacity=mi.max_batch_capacity)))
+    phases = {"tiling_native_s": native_s + batch_s, "tiling_numpy_s": numpy_s + batch_s,
+              "tilings_agree": tilings_agree(tiler, plain), "run_s": 0.0, "collect_s": 0.0}
+    mi.link_bytes.update(upload=0, download=0)
     sinks = ([], [], [], [])
     per_batch = []
-    with torch.no_grad():
-        for vb in batches:
-            (x, plan, order), t_plan = _sync_time(lambda: mi._plan_batch(vb))
-            cfg = ConvConfig(mi.precision, cap_hint=x.capacity, fused=mi.fused)
-            preds, t_unet = _sync_time(lambda: mi.model(plan, x.feats, cfg))
-            counts = torch.stack([lv.count for lv in plan.levels])
-            caps = tuple(lv.keys.shape[0] for lv in plan.levels)
-            _, t_down = _sync_time(
-                lambda: mi._collect(vb, (preds, order, x.active, counts, caps), sinks))
-            phases["plan_s"] += t_plan
-            phases["unet_s"] += t_unet
-            phases["download_s"] += t_down
-            per_batch.append({"capacity": len(vb.coords), "plan_s": t_plan,
-                              "unet_s": t_unet, "download_s": t_down})
-    phases["forward_s"] = time.perf_counter() - t_all
+    for vb in batches:
+        out, t_run = _sync_time(lambda: run(vb))
+        _, t_collect = _sync_time(lambda: collect(vb, out, sinks))
+        phases["run_s"] += t_run
+        phases["collect_s"] += t_collect
+        per_batch.append({"capacity": len(vb.coords), "run_s": t_run, "collect_s": t_collect})
+    phases["link_bytes"] = dict(mi.link_bytes)
+    forward_s = {}
+    for k in (1, 2):
+        mi.max_in_flight = k
+        _, forward_s[f"in_flight_{k}"] = _sync_time(lambda: mi.forward(cloud))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = _sync_time(lambda: mi.predict(cloud))
+        _, wall = _sync_time(lambda: mi.forward(cloud))
     rows = [(e.key, e.count, _kernel_us(e)) for e in prof.key_averages()]
     rows = [r for r in rows if r[2] > 0]
     busy_us = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[2])
     print(json.dumps({
         "card": card,
+        "path": "full" if args.full else "compact+culled",
         "points": len(cloud),
         "batches": len(batches),
         "phases": phases,
         "per_batch": per_batch,
+        "forward_s": forward_s,
         "profiled_forward_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,

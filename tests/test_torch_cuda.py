@@ -235,3 +235,38 @@ def test_fit_smoke_on_the_card_matches_the_cpu(cuda):
     # training needs gradients: no forward-only hand kernel may have run
     assert before == (slab_conv.slab_gather_conv.launches,
                       fused_conv.fused_gather_gemm.launches)
+
+
+@pytest.mark.parametrize("medial", [None, [0]], ids=["compact", "culled"])
+def test_compact_transfers_on_the_card_match_the_cpu(cuda, medial):
+    """The compact and culled forwards on the card (pinned uploads, downloads
+    on the copy stream, two batches in flight) against the CPU, on a tree cut
+    into several batches. fp32 heads differ between the two within the model
+    tolerance, so a quantised row may move by one fp16 ulp of its log radius
+    (under 0.4 % of the radius) or one 1/127 step of a direction component:
+    on rows whose class agrees every component of the medial vector lies
+    within (2/127 + 0.4 %) of that row's length; classes agree on 99 % of
+    the rows or more."""
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    cloud = CentreCloud()(generate_tree(seed=3, height=2.0, trunk_radius=0.08,
+                                        points_per_m2=3000.0, foliage_points=300)[0])
+    kw = dict(block_size=1.0, buffer_size=0.1, batch_size=1, medial_classes=medial)
+    weights = "smart_tree_tpu/weights/synthetic-r3.npz"
+    card = ModelInference(weights, **kw)
+    got = card.forward(cloud)
+    card.max_in_flight = 1
+    again = card.forward(cloud)
+    ref = ModelInference(weights, device="cpu", **kw).forward(cloud)
+    for f in ("xyz", "medial_vector", "class_l"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(again, f), err_msg=f)
+    np.testing.assert_array_equal(got.xyz, ref.xyz)
+    same = got.class_l[:, 0] == ref.class_l[:, 0]
+    assert same.mean() >= 0.99
+    a, b = got.medial_vector[same], ref.medial_vector[same]
+    bound = (2.0 / 127 + 4e-3) * np.linalg.norm(b, axis=1, keepdims=True)
+    assert (np.abs(a - b) <= bound).all()
+    if medial:
+        assert (got.medial_vector[got.class_l[:, 0] != 0] == 0).all()

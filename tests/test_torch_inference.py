@@ -1,6 +1,7 @@
 """Port parity for the inference slice as a whole: ModelInference.forward of
-smart_tree_tpu_torch against smart_tree_tpu's ModelInference on its
-full-download single-device path, plus the host-side pieces (synthetic
+smart_tree_tpu_torch against smart_tree_tpu's ModelInference on the
+full-download single-device path (`compact_transfers=False` on both sides;
+the compact and culled paths are held in test_torch_transfers.py), plus the host-side pieces (synthetic
 trees, tiling, file input, memory model), the device rules and import
 hygiene.
 
@@ -69,7 +70,7 @@ def test_forward_matches_jax_full_download(monkeypatch):
     cloud = CentreCloud()(cloud)
     jcloud = JCentre()(jgenerate(**TREE)[0])
 
-    port = ModelInference(WEIGHTS, device="cpu", precision="float32")
+    port = ModelInference(WEIGHTS, device="cpu", precision="float32", compact_transfers=False)
     batches = list(tds.BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
         4, max_capacity=port.max_batch_capacity))
     assert len(batches) == 1
