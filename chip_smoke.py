@@ -61,12 +61,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      against compact exact (non-medial rows exactly 0), compact against the
      full download at the JAX package's own bounds; the slab kernel must
      have launched in both compact modes, and both kernels in a culled
-     forward with fused=True.
+     forward with fused=True;
+ 15. several devices on the one card: the bench tree's bf16 forward over two
+     replicas on cuda:0 (ModelInference(devices=["cuda:0", "cuda:0"]),
+     culled and with the full download) must return the rows of the
+     one-device forward and launch the slab kernel; then one spawned gloo
+     world of two ranks, killed and failed after 120 s, runs fit_smoke on
+     the card and on the CPU (held against each other, the ranks'
+     parameters equal bit for bit) and in a one-rank NCCL group (held
+     against phase 12); a `{"parallel": ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
-pipeline's stage times, the grid KNN's, the training's and the transfers'
-numbers, and as the last line {"ok": true, "device": {...}}.
+pipeline's stage times, the grid KNN's, the training's, the transfers' and
+the parallel phase's numbers, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -371,6 +379,117 @@ def transfer_phase(torch, np, cloud, card):
     log(f"transfers: {result}")
     return result
 
+
+def _dp_rank(rank, world, cloud, steps):
+    """One rank of phase 15's data-parallel fit_smoke, in the gloo world
+    spawn_world made: the steps on the card, the same steps on the CPU, and
+    on rank 0 the steps again in a one-rank NCCL group. Each as (per-step
+    losses, final state_dict) from every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from smart_tree_tpu_torch.train.train import fit_smoke
+
+    torch.set_num_threads(4)
+    out = {}
+    for name, device, group in (("card_gloo_2", "cuda:0", dist.group.WORLD),
+                                ("cpu_gloo_2", "cpu", dist.group.WORLD)):
+        stats: dict = {}
+        losses = fit_smoke(cloud, steps=steps, capacity=16384, device=device, group=group,
+                           stats=stats)
+        out[name] = (losses, stats["state"])
+    nccl = dist.new_group([0], backend="nccl")  # every rank takes part in making it
+    if rank == 0:
+        stats = {}
+        losses = fit_smoke(cloud, steps=steps, capacity=16384, device="cuda:0", group=nccl,
+                           stats=stats)
+        out["card_nccl_1"] = (losses, stats["state"])
+    return out
+
+
+def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
+    """Phase 15 on the one card: (a) the bench tree's bf16 forward over two
+    replicas on cuda:0 against the single-device forward, culled and with
+    the full download (equal rows; the slab kernel launched); (b) fit_smoke
+    data-parallel on two gloo ranks on the card against the same two ranks on
+    the CPU, and in a one-rank NCCL group against phase 12's one-device
+    steps (one spawned world: each process takes seconds to start).
+    Returns the `parallel` line and the slab launches of one two-replica
+    culled forward."""
+    from smart_tree_tpu_torch.core import slab_conv
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.parallel import spawn_world
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def canonical(c):
+        rows = np.concatenate([c.xyz, c.rgb, c.medial_vector, c.class_l], axis=1)
+        return rows[np.lexsort(rows.T)]
+
+    result = {"card": card, "forward": {}}
+    multi_launches = None
+    for mode, kw in (("culled", dict(medial_classes=[0])),
+                     ("full", dict(compact_transfers=False))):
+        pair = {}
+        for name, devices in (("one", ["cuda:0"]), ("two_replicas", ["cuda:0", "cuda:0"])):
+            mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", devices=devices,
+                                **kw)
+            mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
+            # no warm-up: phase 14 ran these batches in both modes (the time
+            # of the two-replica forward includes copying the model twice)
+            slab_conv.slab_gather_conv.launches = 0
+            out, dt = synced(lambda: mi.forward(cloud))
+            launches = slab_conv.slab_gather_conv.launches
+            if launches == 0:
+                raise AssertionError(f"{mode} forward on {devices}: no slab launch")
+            pair[name] = out
+            result["forward"][f"{mode}_{name}_s"] = dt
+            result["forward"][f"{mode}_{name}_slab_launches"] = launches
+        if len(pair["one"]) == 0:
+            raise AssertionError(f"{mode} forward returned no voxel")
+        if not np.array_equal(canonical(pair["two_replicas"]), canonical(pair["one"])):
+            raise AssertionError(f"{mode}: the two-replica forward differs from the one-device "
+                                 "forward")
+        if mode == "culled":
+            multi_launches = result["forward"]["culled_two_replicas_slab_launches"]
+    result["forward"]["voxels"] = len(pair["one"])
+
+    # (b) data-parallel steps, in one gloo world of two ranks with a hard limit
+    steps = len(fit_card)
+    with tempfile.TemporaryDirectory() as rdv:
+        t0 = time.perf_counter()
+        # spawn_world kills the ranks and raises after 120 s: a hang fails
+        ranks = spawn_world(_dp_rank, 2, f"file://{rdv}/rendezvous", args=(small_raw, steps))
+        result["dp_world_s"] = time.perf_counter() - t0
+    dp = {}
+    for name in ("card_gloo_2", "cpu_gloo_2", "card_nccl_1"):
+        runs = [r[name] for r in ranks if name in r]
+        if len(runs) != (1 if name == "card_nccl_1" else 2):
+            raise AssertionError(f"{name}: {len(runs)} ranks answered")
+        losses, state = runs[0]
+        for other_losses, other_state in runs[1:]:
+            if not np.array_equal(other_losses, losses):
+                raise AssertionError(f"{name}: the ranks logged different losses")
+            for k in state:
+                if not np.array_equal(other_state[k], state[k]):
+                    raise AssertionError(f"{name}: the ranks hold different {k}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: fit_smoke does not learn: {losses}")
+        dp[name] = {"ranks": len(runs), "losses": losses.tolist()}
+    card2, cpu2 = (np.asarray(dp[k]["losses"]) for k in ("card_gloo_2", "cpu_gloo_2"))
+    np.testing.assert_allclose(card2[0], cpu2[0], rtol=FIT_SMOKE_FIRST_RTOL)
+    np.testing.assert_allclose(card2, cpu2, rtol=FIT_SMOKE_RTOL)
+    nccl1 = np.asarray(dp["card_nccl_1"]["losses"])
+    np.testing.assert_allclose(nccl1[0], fit_card[0], rtol=FIT_SMOKE_FIRST_RTOL)
+    np.testing.assert_allclose(nccl1, fit_card, rtol=FIT_SMOKE_RTOL)
+    result["dp"] = dp
+    log(f"parallel: {result}")
+    return result, multi_launches
 
 def main() -> int:
     import torch
@@ -929,6 +1048,11 @@ def main() -> int:
     # 14. the input side and the transfer paths on the bench tree, bf16
     transfers = transfer_phase(torch, np, cloud, card)
 
+    # 15. several devices on the one card: replicas and ranks
+    t0 = time.perf_counter()
+    parallel, multi_launches = parallel_phase(torch, np, cloud, small_raw, fit_card, card)
+    parallel["phase_s"] = time.perf_counter() - t0
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -956,6 +1080,7 @@ def main() -> int:
               replaces="smart_tree_tpu/core/pallas_slab.py:269",
               launches=slab_launches, launches_per_forward=slab_per_forward,
               launches_per_culled_forward=transfers["modes"]["culled"]["slab_launches"],
+              launches_per_multi_device_forward=multi_launches,
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -985,6 +1110,7 @@ def main() -> int:
     print(json.dumps({"grid_knn": grid_stats}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"transfers": transfers}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -6,18 +6,22 @@ default budget (12 GiB) is the JAX package's; sizing for the H100's 80 GB is
 later work.
 
   per level l, capacity cap_l, channels C_l:
-    - conv gather transients, row-chunked at ROW_CHUNK rows;
+    - conv gather transients, counted as ROW_CHUNK rows;
     - z-window tables and rulebook-build temporaries;
     - persistent plan tables and feature buffers.
+
+The port's convs chunk where the JAX package's do (core/sparse_ops.py,
+`ConvConfig.chunked`): route 3 gathers ROW_CHUNK rows at a time, forward
+and backward, once a whole fp32 gather would pass 1 GiB. A smaller gather
+is built whole, so a transient the model counts as ROW_CHUNK rows can
+reach 1 GiB; the JAX package's model counts it the same way.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-# Row chunk the JAX package's gather transients are bounded by
-# (smart_tree_tpu/core/sparse_ops.py::_ROW_CHUNK).
-ROW_CHUNK = 32768
+from .sparse_ops import ROW_CHUNK
 
 
 def level_capacities(

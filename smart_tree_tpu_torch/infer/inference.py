@@ -21,6 +21,14 @@ device, with its three transfer modes:
       `predict()` always takes this path: full-precision heads for
       inspection (the JAX package quantises this path too).
 
+With more than one device (`devices=`, by default every visible card, as
+the JAX package takes `jax.devices()`) and more than one batch, `forward`
+and `predict` deal the batches to the devices as the JAX package's
+multichip path does (`_submit_multi_device`, parallel/block_infer.py):
+grouped by shape in sorted order, `len(devices)` at a time, every batch of a
+group launched on its own device's replica before the group is collected,
+so the rows come back in the JAX package's multichip order.
+
 A batch whose UNet level overflowed reruns the same mode with counts-driven
 level capacities. `max_in_flight` batches are queued before the host
 collects the oldest: the run half of every mode only queues work (pinned
@@ -37,6 +45,7 @@ kernel, like the JAX package under SMART_TREE_TPU_PALLAS=1.
 from __future__ import annotations
 
 import functools
+import itertools
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -51,7 +60,7 @@ from ..core.sparse_tensor import SparseVoxelTensor
 from ..data.cloud import Cloud
 from ..data.dataset import BlockTiler, stage_rows
 from ..device import resolve_device
-from ..nn.convert import load_model, load_npz
+from ..nn.convert import load_model, load_weights
 
 
 def compress_preds(preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -148,8 +157,19 @@ class ModelInference:
         medial_classes: Sequence[int] | None = None,
         fused: bool = False,
         device: str | torch.device | None = None,
+        devices: Sequence[str | torch.device] | None = None,
     ):
-        self.device = resolve_device(device)  # TF32 off on a card
+        if device is not None and devices is not None:
+            raise ValueError("give `device` or `devices`, not both")
+        if devices is None:
+            from ..parallel.mesh import make_devices
+
+            devices = make_devices() if device is None and torch.cuda.is_available() \
+                else [device]
+        if not devices:
+            raise ValueError("`devices` is empty")
+        self.devices = [resolve_device(d) for d in devices]  # TF32 off on a card
+        self.device = self.devices[0]
         # classes whose medial vector later stages consume; None (or an empty
         # sequence) keeps every row's
         self.medial_classes = (
@@ -167,7 +187,7 @@ class ModelInference:
         self.hbm_budget_bytes = hbm_budget_bytes
         self.compact_transfers = compact_transfers
         self.upload_granularity = upload_granularity
-        self.model = load_model(load_npz(weights_path), self.device)
+        self.model = load_model(load_weights(weights_path), self.device)
         self.feature_mode = "local" if self.model.input_channels == 4 else "xyz"
         # absolute-xyz models take int8 residuals on the compact upload;
         # 'local' models divide residuals by the voxel size and keep fp16
@@ -187,6 +207,7 @@ class ModelInference:
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        self._sharded = None  # parallel.ShardedForward, made at first use
 
     # -- transfers ---------------------------------------------------------
 
@@ -434,13 +455,22 @@ class ModelInference:
 
     # -- entry points --------------------------------------------------------
 
-    def _windowed(self, cloud: Cloud, run, collect):
-        """Tile the cloud and run every batch with at most max_in_flight
-        batches queued ahead of the one being collected: the sinks."""
+    def _windowed(self, cloud: Cloud, run: str, collect: str):
+        """Tile the cloud and run every batch through the halves named `run`
+        and `collect`: the sinks. On one device at most max_in_flight batches
+        are queued ahead of the one being collected; on several, with more
+        than one batch, `_submit_multi_device` deals them out."""
         tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
+        batches = tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity)
         sinks = ([], [], [], [])
+        if len(self.devices) > 1:
+            batches = list(batches)
+            if len(batches) > 1:
+                self._submit_multi_device(batches, run, collect, sinks)
+                return sinks
+        run, collect = getattr(self, run), getattr(self, collect)
         window: list = []
-        for vb in tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity):
+        for vb in batches:
             window.append((vb, run(vb)))
             if len(window) >= max(1, self.max_in_flight):
                 collect(*window.pop(0), sinks)
@@ -448,12 +478,29 @@ class ModelInference:
             collect(vb, out, sinks)
         return sinks
 
+    def _submit_multi_device(self, batches, run: str, collect: str, sinks) -> None:
+        """The JAX package's `_submit_multichip`: batches grouped by (capacity,
+        spatial shape, batch size) in sorted order, each group dealt
+        len(devices) at a time, one batch to each device's replica; a group
+        is launched whole, then collected in device order. Repeat slots of a
+        short group are not run."""
+        from ..parallel.block_infer import ShardedForward, device_groups
+
+        if self._sharded is None:
+            self._sharded = ShardedForward(self, self.devices)
+        replicas = self._sharded.replicas(self)
+        keyf = lambda vb: (len(vb.coords), vb.spatial_shape, vb.batch_size)  # noqa: E731
+        for _, group in itertools.groupby(sorted(batches, key=keyf), key=keyf):
+            for chunk, keep in device_groups(list(group), len(replicas)):
+                launched = ShardedForward.launch(replicas, chunk, keep, run)
+                ShardedForward.collect(launched, collect, sinks)
+
     def predict(self, cloud: Cloud) -> Dict[str, np.ndarray]:
         """Per-voxel predictions at full precision for the interior voxels of
         every block, through the full-download path: xyz, rgb, radius [n,1]
         (log radius), direction [n,3], class_logits."""
         out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
-            cloud, self._run_batch, self._collect)
+            cloud, "_run_batch", "_collect")
         if not out_xyzrgb:
             z = np.zeros((0, 3), np.float32)
             return {"xyz": z, "rgb": z, "radius": np.zeros((0, 1), np.float32),
@@ -481,9 +528,9 @@ class ModelInference:
             xyz, rgb = p["xyz"], p["rgb"]
         else:
             if self.medial_classes is not None:
-                run, collect = self._run_batch_culled, self._collect_culled
+                run, collect = "_run_batch_culled", "_collect_culled"
             else:
-                run, collect = self._run_batch_compact, self._collect_compact
+                run, collect = "_run_batch_compact", "_collect_compact"
             out_xyzrgb, out_radius, out_dir, out_class = self._windowed(cloud, run, collect)
             if not out_xyzrgb:  # too sparse to form any block
                 z = np.zeros((0, 3), np.float32)

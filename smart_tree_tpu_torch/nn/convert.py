@@ -10,6 +10,11 @@ collection, joined with dots: "params/UNet/Head/sequence.0/weight" becomes
 The way back (`variables_from_model`, `save_npz`) splits a state_dict key
 into the flax path again, so a checkpoint the port writes loads in the JAX
 package's `load_npz` and in the port's own.
+
+The reference's own checkpoints are spconv state_dicts (`.pt`): the same
+module paths, BatchNorm leaves named weight / bias / running_mean /
+running_var (and num_batches_tracked, which nothing reads), conv kernels
+(Cout, kx, ky, kz, Cin). `load_weights` reads either kind by its suffix.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from .model import SmartTree
 
 _COLLECTIONS = ("params", "batch_stats")
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
@@ -158,3 +164,81 @@ def load_model(sd: Mapping[str, torch.Tensor], device: torch.device) -> SmartTre
     model = model_from_variables(sd)
     model.load_state_dict(dict(sd), strict=True)
     return model.to(device).eval()
+
+
+def torch_key_for(path: tuple, collection: str) -> str:
+    """The reference state_dict key of a flax variable path."""
+    *mods, leaf = path
+    if collection == "batch_stats":
+        leaf = _BN_STATS[leaf]
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join(list(mods) + [leaf])
+
+
+def convert_state_dict(state_dict: Mapping[str, Any], model: SmartTree) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for `model` from a reference spconv state_dict:
+    conv kernels (Cout, kx, ky, kz, Cin) become [K3, Cin, Cout] (kx-major,
+    the port's offset order); num_batches_tracked is skipped. Raises on a
+    missing key, a shape that differs from the model's, or a key left over."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    buffers = {name for name, _ in model.named_buffers()}
+    used = set()
+    out: Dict[str, torch.Tensor] = {}
+    for key, template in model.state_dict().items():
+        tkey = torch_key_for(flax_path(key), "batch_stats" if key in buffers else "params")
+        if tkey not in sd:
+            raise KeyError(f"checkpoint missing {tkey} for {key}")
+        w = sd[tkey]
+        used.add(tkey)
+        if w.ndim == 5:
+            cout, kx, ky, kz, cin = w.shape
+            w = w.permute(1, 2, 3, 4, 0).reshape(kx * ky * kz, cin, cout)
+        if tuple(w.shape) != tuple(template.shape):
+            raise ValueError(f"{tkey}: shape {tuple(w.shape)} != model {tuple(template.shape)}")
+        out[key] = w.to(torch.float32).contiguous()
+    extra = sorted(k for k in sd if k not in used and not k.endswith("num_batches_tracked"))
+    if extra:
+        raise ValueError(f"unconsumed checkpoint keys: {extra[:8]}...")
+    return out
+
+
+def model_from_state_dict_shapes(sd: Mapping[str, torch.Tensor]) -> SmartTree:
+    """SmartTree with the widths of a reference spconv state_dict."""
+    planes = []
+    prefix = "UNet."
+    while True:
+        planes.append(int(sd[prefix + "Head.sequence.0.weight"].shape[0]))
+        if prefix + "U.Head.sequence.0.weight" not in sd:
+            break
+        prefix += "U."
+
+    def head_planes(h: str):
+        idxs = sorted(
+            int(k.split(".")[2])
+            for k in sd
+            if k.startswith(h + ".sequence.") and k.endswith(".weight") and sd[k].ndim == 5
+        )
+        pl = [int(sd[f"{h}.sequence.{idxs[0]}.weight"].shape[-1])]
+        pl += [int(sd[f"{h}.sequence.{i}.weight"].shape[0]) for i in idxs]
+        return tuple(pl)
+
+    return SmartTree(
+        input_channels=int(sd["input_conv.sequence.0.weight"].shape[-1]),
+        unet_planes=tuple(planes),
+        radius_fc_planes=head_planes("radius_head"),
+        direction_fc_planes=head_planes("direction_head"),
+        class_fc_planes=head_planes("class_head"),
+    )
+
+
+def load_weights(path) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from a checkpoint `.npz` or a reference spconv
+    `.pt` state_dict; any other suffix raises, as in the JAX package."""
+    path = resolve_weights(path)
+    if path.suffix == ".npz":
+        return load_npz(path)
+    if path.suffix == ".pt":  # weights_only: tensors, no pickled code runs
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return convert_state_dict(sd, model_from_state_dict_shapes(sd))
+    raise ValueError(f"unsupported weights format: {path}")

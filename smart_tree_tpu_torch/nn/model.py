@@ -10,11 +10,13 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.plan import UNetPlan
 from ..core.sparse_ops import ConvConfig
 from .blocks import ConvNormAct, SparseConv, SparseFC, UBlock
+from .norm import MaskedBatchNorm
 
 
 class SmartTree(nn.Module):
@@ -26,6 +28,7 @@ class SmartTree(nn.Module):
         direction_fc_planes: Sequence[int] = (8, 8, 4, 3),
         class_fc_planes: Sequence[int] = (8, 8, 4, 2),
         generator: torch.Generator | None = None,
+        bn_group: dist.ProcessGroup | None = None,
     ):
         super().__init__()
         self.input_channels = int(input_channels)
@@ -40,6 +43,8 @@ class SmartTree(nn.Module):
         for m in self.modules():
             if isinstance(m, SparseConv):
                 m.reset_parameters(generator)
+            elif isinstance(m, MaskedBatchNorm):
+                m.group = bn_group
 
     def forward(
         self, plan: UNetPlan, feats: torch.Tensor, cfg: ConvConfig = ConvConfig()

@@ -11,6 +11,14 @@ formula (sums, not `torch.var`): mean = s1 / cnt, var = max(s2 / cnt - mean^2,
 statistics move by `momentum` towards the batch's, the variance with the
 unbiased factor cnt / max(cnt - 1, 1), outside autograd.
 
+With a process group (`group`, the counterpart of the JAX package's
+`axis_name`) train mode sums cnt, s1 and s2 over the group's ranks before
+the mean, the variance and the running-statistics update, so data-parallel
+training normalises by the statistics of the whole global batch. The sum is
+`torch.distributed.nn.functional.all_reduce`, whose backward all-reduces the
+incoming gradient: the transpose of JAX's `psum`, so the gradient keeps the
+terms that cross ranks, as JAX's does.
+
 The parameter and buffer names (`scale`, `bias`, `mean`, `var`) are the flax
 names, so the state_dict keys equal the flax variable paths.
 """
@@ -18,14 +26,17 @@ names, so the state_dict keys equal the flax variable paths.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 group: dist.ProcessGroup | None = None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -36,10 +47,17 @@ class MaskedBatchNorm(nn.Module):
         keep them zeroed via the mask."""
         if self.training:
             m = mask.to(torch.float32)[:, None]
-            cnt = m.sum().clamp_min(1.0)
             xf = x.to(torch.float32)
-            mean = (xf * m).sum(dim=0) / cnt
-            var = ((xf * xf * m).sum(dim=0) / cnt - mean * mean).clamp_min(0.0)
+            cnt, s1, s2 = m.sum(), (xf * m).sum(dim=0), (xf * xf * m).sum(dim=0)
+            if self.group is not None:
+                from torch.distributed.nn.functional import all_reduce
+
+                c = x.shape[1]
+                sums = all_reduce(torch.cat([cnt[None], s1, s2]), group=self.group)
+                cnt, s1, s2 = sums[0], sums[1 : 1 + c], sums[1 + c :]
+            cnt = cnt.clamp_min(1.0)
+            mean = s1 / cnt
+            var = (s2 / cnt - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
                 self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)

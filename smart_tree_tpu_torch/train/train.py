@@ -7,8 +7,22 @@
 Epoch loop with validation and test evaluation, ReduceLROnPlateau on the
 validation loss, best-weights save, a full checkpoint every epoch (weights,
 Adam moments, scheduler, epoch) that `resume=<dir>` continues from,
-`warm_start=<weights.npz>`, early stop. Runs on the card unless `device=cpu`
-is given; one device (training across cards is later work).
+`warm_start=<weights.npz or .pt>`, early stop. Runs on the card unless
+`device=cpu` is given.
+
+Data-parallel over N cards, one process each, as the JAX trainer runs over
+every device of its mesh (parallel/dp.py):
+
+    torchrun --nproc_per_node=N -m smart_tree_tpu_torch.train.train ...
+
+Under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set) or in a process group the
+caller initialised, rank r trains on `cuda:LOCAL_RANK` (NCCL; gloo with
+`device=cpu`): every rank builds the same [W, cap] batch stacks from one
+seed and takes its row, `batch_size` items split over the W rows; the batch
+norms and the gradients are reduced over the ranks; the scheduler and the
+early stop read the averaged losses, so the ranks decide alike; rank 0 alone
+writes checkpoints, metrics and captures, and every rank reads `resume=`.
+Without a process group it is the one-device trainer.
 
 Without `--config=` the configuration is `utils.configs.DEFAULT_TRAINING`,
 which a test holds equal to conf/training.yaml, so the entry point also works
@@ -23,19 +37,23 @@ import queue
 import sys
 import threading
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import TreeDataset, collate, voxelize_host
 from ..device import resolve_device
-from ..nn.convert import load_npz, save_npz, variables_from_model
+from ..nn.convert import load_npz, load_weights, save_npz, variables_from_model
 from ..nn.model import SmartTree
+from ..parallel.dp import dp_eval_step, dp_train_step, group_size
+from ..parallel.mesh import world
 from ..utils.configs import (apply_overrides, default_training_config, instantiate, load_yaml,
                              resolve)
 from .schedule import ReduceLROnPlateau
-from .step import StepConfig, TrainState, batch_to_device, eval_step, train_step
+from .step import StepConfig, TrainState
 from .tracker import MetricsSink, Tracker
 
 log = logging.getLogger("smart_tree_tpu_torch.train")
@@ -43,6 +61,8 @@ log = logging.getLogger("smart_tree_tpu_torch.train")
 # losses are fetched this many steps late, so the host prepares and enqueues
 # the next steps while the device still works on the earlier ones
 LOSS_FETCH_LAG = 4
+# how long a rank waits for the others at a rendezvous or a collective
+DIST_TIMEOUT = timedelta(minutes=10)
 
 
 def _pack_bins(sizes, budget: int, max_items: int):
@@ -79,8 +99,8 @@ def _device_batches(dataset: TreeDataset, cfg, n_dev: int = 1, shuffle=True):
     (int16 coords, fp16 residual xyz, fp16 radius, int8 direction / class).
     Items are budget-packed: a window of voxelised items is bin-packed to the
     fixed capacity, so batches carry up to `batch_size` items and nearly no
-    padding. `n_dev` is 1 on this package's single-device path; the stacking
-    axis is kept so the arrays equal the reference's."""
+    padding. `n_dev` is the number of data-parallel ranks; each takes its
+    row (parallel/dp.py)."""
     per_dev_items = max(cfg["batch_size"] // n_dev, 1)
     cap = int(cfg["batch_capacity"])
     voxel = float(cfg["voxel_size"])
@@ -142,15 +162,16 @@ def _prefetch(it, depth: int = 2):
 
 
 def run_epoch(state: TrainState, dataset, cfg, sc: StepConfig, device, train: bool,
-              stats: dict | None = None) -> Tracker:
-    """One pass over `dataset`. Logs where the host's time went: fetch
-    (waiting for the batch thread), dispatch (upload and enqueueing the
-    step) and device-wait (blocking on a loss). With a `stats` dict it also
-    records those, the steps, the voxels and, on a card, the synchronised
-    seconds per step after the first."""
+              stats: dict | None = None, group=None) -> Tracker:
+    """One pass over `dataset`, data-parallel over `group` when given. Logs
+    where the host's time went: fetch (waiting for the batch thread),
+    dispatch (upload and enqueueing the step) and device-wait (blocking on a
+    loss). With a `stats` dict it also records those, the steps, the voxels
+    of all ranks and, on a card, the synchronised seconds per step after the
+    first."""
     tracker = Tracker()
-    step_fn = train_step if train else eval_step
-    batches = _prefetch(_device_batches(dataset, cfg, shuffle=train))
+    step_fn = dp_train_step if train else dp_eval_step
+    batches = _prefetch(_device_batches(dataset, cfg, group_size(group), shuffle=train))
     pending = []  # small in-flight window: keeps dispatch ahead of the device
     t_fetch = t_dispatch = t_sync = 0.0
     n_steps = voxels = 0
@@ -162,7 +183,7 @@ def run_epoch(state: TrainState, dataset, cfg, sc: StepConfig, device, train: bo
         if batch is None:
             break
         t0 = time.time()
-        losses = step_fn(state, batch_to_device(batch, device), sc)
+        losses = step_fn(state, batch, sc, group)
         t_dispatch += time.time() - t0
         n_steps += 1
         voxels += int(batch[4].sum())
@@ -210,8 +231,9 @@ def save_checkpoint(path: Path, state: TrainState, scheduler, epoch: int, best: 
         )
 
 
-def build_model(model_cfg, seed: int = 0) -> SmartTree:
-    """A freshly initialised SmartTree (on the CPU) from the `model` node."""
+def build_model(model_cfg, seed: int = 0, bn_group=None) -> SmartTree:
+    """A freshly initialised SmartTree (on the CPU) from the `model` node,
+    its batch norms reduced over `bn_group` when given."""
     return SmartTree(
         input_channels=model_cfg["input_channels"],
         unet_planes=tuple(model_cfg["unet_planes"]),
@@ -219,6 +241,7 @@ def build_model(model_cfg, seed: int = 0) -> SmartTree:
         direction_fc_planes=tuple(model_cfg["direction_fc_planes"]),
         class_fc_planes=tuple(model_cfg["class_fc_planes"]),
         generator=torch.Generator().manual_seed(int(seed)),
+        bn_group=bn_group,
     )
 
 
@@ -255,8 +278,30 @@ def main(argv=None, stats: dict | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = load_config(list(sys.argv[1:] if argv is None else argv))
     device = resolve_device(cfg.get("device"))
+    _, world_size, local_rank = world()
+    if world_size == 1:
+        return _train(cfg, device, None, stats)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    own = not dist.is_initialized()
+    if own:  # torchrun's environment names the rendezvous
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=DIST_TIMEOUT)
+    try:
+        return _train(cfg, device, dist.group.WORLD, stats)
+    finally:
+        if own:
+            dist.destroy_process_group()
 
-    sink = MetricsSink(**cfg.get("wandb", {}))
+
+def _train(cfg, device: torch.device, group, stats: dict | None) -> int:
+    """The epoch loop of `main`, data-parallel over `group` when given."""
+    lead = group is None or dist.get_rank(group) == 0  # writes files and metrics
+    wandb_cfg = dict(cfg.get("wandb", {}))
+    if not lead:
+        wandb_cfg["mode"] = "disabled"
+    sink = MetricsSink(**wandb_cfg)
     np.random.seed(cfg.get("seed", 1))
 
     train_ds: TreeDataset = instantiate(cfg["train_dataset"])
@@ -264,7 +309,7 @@ def main(argv=None, stats: dict | None = None) -> int:
     test_ds: TreeDataset = instantiate(cfg["test_dataset"])
     log.info("datasets: train=%d val=%d test=%d", len(train_ds), len(val_ds), len(test_ds))
 
-    model = build_model(cfg["model"], cfg.get("seed", 1))
+    model = build_model(cfg["model"], cfg.get("seed", 1), bn_group=group)
     scheduler = ReduceLROnPlateau(lr=cfg["lr"])
 
     out_dir = Path(cfg.get("output_dir", "runs")) / sink.run_name
@@ -285,14 +330,15 @@ def main(argv=None, stats: dict | None = None) -> int:
         log.info("resumed from %s at epoch %d", ckpt, start_epoch)
     elif cfg.get("warm_start"):
         # continue from a weights-only checkpoint (params and batch
-        # statistics): fresh Adam moments and epoch counter, warm network
-        model.load_state_dict(load_npz(cfg["warm_start"]), strict=True)
+        # statistics; .npz or a reference .pt): fresh Adam moments and epoch
+        # counter, warm network
+        model.load_state_dict(load_weights(cfg["warm_start"]), strict=True)
         log.info("warm-started params from %s", cfg["warm_start"])
 
     state = TrainState(model.to(device), lr=cfg["lr"], step=step)
     if opt_state is not None:
         state.load_optimizer_state(opt_state)
-    sc = step_config(cfg, max(int(cfg["batch_size"]), 1))
+    sc = step_config(cfg, max(int(cfg["batch_size"]) // group_size(group), 1))
     if stats is not None:
         stats.update(epochs=[], out_dir=str(out_dir))
 
@@ -301,11 +347,11 @@ def main(argv=None, stats: dict | None = None) -> int:
         t0 = time.time()
         state.set_lr(scheduler.lr)  # the scheduler's lr goes into the optimizer
         rec = {"epoch": epoch, "train": {}, "val": {}, "test": {}} if stats is not None else {}
-        tr = run_epoch(state, train_ds, cfg, sc, device, True, rec.get("train"))
+        tr = run_epoch(state, train_ds, cfg, sc, device, True, rec.get("train"), group)
         tr.log("train", epoch, sink)
-        va = run_epoch(state, val_ds, cfg, sc, device, False, rec.get("val"))
+        va = run_epoch(state, val_ds, cfg, sc, device, False, rec.get("val"), group)
         va.log("val", epoch, sink)
-        te = run_epoch(state, test_ds, cfg, sc, device, False, rec.get("test"))
+        te = run_epoch(state, test_ds, cfg, sc, device, False, rec.get("test"), group)
         te.log("test", epoch, sink)
         if stats is not None:
             stats["epochs"].append(rec)
@@ -315,17 +361,19 @@ def main(argv=None, stats: dict | None = None) -> int:
         if val_loss < best_val:
             best_val = val_loss
             epochs_no_improve = 0
-            save_checkpoint(out_dir, state, scheduler, epoch, best_val)
-            save_npz(out_dir / "best_weights.npz", variables_from_model(state.model))
-            log.info("epoch %d: new best val %.4f -> %s", epoch, best_val, out_dir)
+            if lead:
+                save_checkpoint(out_dir, state, scheduler, epoch, best_val)
+                save_npz(out_dir / "best_weights.npz", variables_from_model(state.model))
+                log.info("epoch %d: new best val %.4f -> %s", epoch, best_val, out_dir)
         else:
             epochs_no_improve += 1
         # always-current checkpoint: lets a run be stopped and resumed at the
         # LAST epoch, not the last validation improvement
-        save_checkpoint(out_dir / "last", state, scheduler, epoch, best_val)
+        if lead:
+            save_checkpoint(out_dir / "last", state, scheduler, epoch, best_val)
         log.info("epoch %d done in %.1fs (lr=%.2e)", epoch, time.time() - t0, scheduler.lr)
 
-        if cfg.get("capture_output") and epoch % int(cfg["capture_output"]) == 0:
+        if lead and cfg.get("capture_output") and epoch % int(cfg["capture_output"]) == 0:
             try:
                 capture_epoch(state, val_ds, cfg, out_dir, epoch, sink)
             except Exception as e:  # pragma: no cover - capture is best-effort
@@ -338,11 +386,19 @@ def main(argv=None, stats: dict | None = None) -> int:
 
 
 def fit_smoke(cloud, steps: int = 6, capacity: int = 8192, lr: float = 0.01,
-              planes=(8, 16, 32), voxel_size: float = 0.01, device=None, seed: int = 0):
+              planes=(8, 16, 32), voxel_size: float = 0.01, device=None, seed: int = 0,
+              group=None, stats: dict | None = None):
     """Overfit a few train steps on ONE cloud and return the per-step total
     losses: a fast probe of the whole train path (the card against the CPU,
-    or for bisecting training breakage). The weights come from `seed`."""
+    or for bisecting training breakage). The weights come from `seed`.
+
+    With a process group the steps are data-parallel over its W ranks
+    (parallel/dp.py): row r of the batch stack holds every W-th point of the
+    cloud from the r-th, so each rank trains on other voxels, and the losses
+    are the ranks' mean. `stats`, when given, receives the trained
+    state_dict as numpy arrays ("state")."""
     device = resolve_device(device)
+    n_dev = group_size(group)
     xyz = np.asarray(cloud.xyz, np.float32)
     targets = np.concatenate(
         [
@@ -352,27 +408,32 @@ def fit_smoke(cloud, steps: int = 6, capacity: int = 8192, lr: float = 0.01,
         ],
         axis=1,
     )
-    coords, data, origin = voxelize_host(xyz, np.concatenate([xyz, targets], 1), voxel_size)
-    vb = collate(
-        [(coords, data[:, :3], data[:, 3:], "smoke", origin)], 1,
-        capacity=capacity, voxel_size=voxel_size,
-    )
+    data_all = np.concatenate([xyz, targets], 1)
+    rows = []
+    for r in range(n_dev):
+        coords, data, origin = voxelize_host(xyz[r::n_dev], data_all[r::n_dev], voxel_size)
+        rows.append(collate([(coords, data[:, :3], data[:, 3:], "smoke", origin)], 1,
+                            capacity=capacity, voxel_size=voxel_size))
     model = build_model(
         dict(input_channels=3, unet_planes=planes, radius_fc_planes=(planes[0], 4, 1),
              direction_fc_planes=(planes[0], 4, 3), class_fc_planes=(planes[0], 4, 2)),
-        seed,
+        seed, bn_group=group,
     )
     state = TrainState(model.to(device), lr=lr)
-    sc = StepConfig(spatial_shape=vb.spatial_shape, device_batch=1, voxel_size=voxel_size)
-    c16, res, orig = vb.compressed_xyz_upload()
-    radius16, dir_cls8 = encode_targets(vb.targets)
-    batch = batch_to_device(
-        [a[None] for a in (c16, res, radius16, dir_cls8, vb.valid, orig)], device
-    )
+    # one static grid for every row, as the reference's stacked batch has
+    spatial = tuple(max(s) for s in zip(*(vb.spatial_shape for vb in rows)))
+    sc = StepConfig(spatial_shape=spatial, device_batch=1, voxel_size=voxel_size)
+    comp = [vb.compressed_xyz_upload() for vb in rows]
+    radius16, dir_cls8 = encode_targets(np.stack([vb.targets for vb in rows]))
+    stack = (np.stack([c[0] for c in comp]), np.stack([c[1] for c in comp]), radius16,
+             dir_cls8, np.stack([vb.valid for vb in rows]), np.stack([c[2] for c in comp]))
+    batch = tuple(torch.from_numpy(a).to(device) for a in stack)
     losses = []
     for _ in range(steps):
-        out = train_step(state, batch, sc)
+        out = dp_train_step(state, batch, sc, group)
         losses.append(float(sum(out.values())))
+    if stats is not None:
+        stats["state"] = {k: v.detach().cpu().numpy() for k, v in state.model.state_dict().items()}
     return np.asarray(losses)
 
 

@@ -270,3 +270,30 @@ def test_compact_transfers_on_the_card_match_the_cpu(cuda, medial):
     assert (np.abs(a - b) <= bound).all()
     if medial:
         assert (got.medial_vector[got.class_l[:, 0] != 0] == 0).all()
+
+
+@pytest.mark.parametrize("medial", [None, [0]], ids=["compact", "culled"])
+def test_two_replicas_on_one_card_match_one(cuda, medial):
+    """ModelInference(devices=["cuda:0", "cuda:0"]) deals the batches to two
+    replicas on the card; its rows are the one-device forward's, equal bit
+    for bit (same kernels on the same inputs), in the JAX multichip order."""
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    cloud = CentreCloud()(generate_tree(seed=3, height=2.0, trunk_radius=0.08,
+                                        points_per_m2=3000.0, foliage_points=300)[0])
+    kw = dict(block_size=1.0, buffer_size=0.1, batch_size=1, medial_classes=medial,
+              precision="bfloat16")
+    weights = "smart_tree_tpu/weights/synthetic-r3.npz"
+    one = ModelInference(weights, devices=["cuda:0"], **kw).forward(cloud)
+    two_mi = ModelInference(weights, devices=["cuda:0", "cuda:0"], **kw)
+    two = two_mi.forward(cloud)
+    assert len(two_mi._sharded.models) == 2
+
+    def rows(c):
+        r = np.concatenate([c.xyz, c.rgb, c.medial_vector, c.class_l], axis=1)
+        return r[np.lexsort(r.T)]
+
+    assert len(one) > 1000
+    np.testing.assert_array_equal(rows(two), rows(one))

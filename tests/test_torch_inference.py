@@ -200,6 +200,8 @@ def test_import_hygiene():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'smart_tree_tpu'))\n"
         "assert not bad, bad\n"
+        "assert all('smart_tree_tpu_torch.parallel.' + m in sys.modules\n"
+        "           for m in ('mesh', 'dp', 'block_infer'))\n"
         "print(len([m for m in sys.modules if m.startswith('smart_tree_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
