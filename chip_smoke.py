@@ -69,12 +69,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
      world of two ranks, killed and failed after 120 s, runs fit_smoke on
      the card and on the CPU (held against each other, the ranks'
      parameters equal bit for bit) and in a one-rank NCCL group (held
-     against phase 12); a `{"parallel": ...}` line.
+     against phase 12); a `{"parallel": ...}` line;
+ 16. the modules ported last: (a) on the bench tree's batches (the plans
+     the bf16 forward settles on) the sorted-lookup `strided_rulebook` and
+     `inverse_rulebook` equal the plan's strided and inverse rulebooks entry
+     for entry, and `subm_rulebook9` on the card equals the CPU's; (b) every
+     subm conv of one fp32 forward on z9 plans (build_plan(subm_mode="z9"))
+     equals the full-rulebook route-3 conv on its inputs; (c) SmartTree on
+     the z9 plans against the full plans: fp32 within the model tolerance,
+     at bf16 each subm conv against the slab kernel on the full rulebook
+     (FP32_UNIT's summation bound) and the whole forward within
+     Z9_SPREAD_FACTOR of the full plan's own kernel spread; the slab kernel
+     launched by the
+     z9 bf16 forward exactly for its strided and inverse convs past the row
+     threshold (never for a subm conv); both plans' forwards timed at both
+     precisions (CUDA events, median of 5 after a warm-up); (d)
+     connect_skeletons on phase 8's skeletons (at the default 0.5 m and at
+     any distance, which grafts them all), sssp from one root and
+     sample_tree on phase 7's small tree, each the card against the CPU;
+     (e) viewer_items on the bench cloud and skeleton against phase 8's PLY
+     counts, view_skeleton returning after its warning, and split_data plus
+     one bench_dataloader epoch on phase 11's corpus (run while the corpus
+     exists, at the end of phase 13); a `{"remaining_modules": ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
-pipeline's stage times, the grid KNN's, the training's, the transfers' and
-the parallel phase's numbers, and as the last line {"ok": true, "device": {...}}.
+pipeline's stage times, the grid KNN's, the training's, the transfers', the
+parallel phase's and the last modules' numbers, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -125,6 +147,21 @@ TRAIN_PASSES = 4
 EXP_OVERFLOW_FROM = 80.0
 FIT_SMOKE_FIRST_RTOL = 1e-4   # one step: fp32 summation order
 FIT_SMOKE_RTOL = 1e-2         # six Adam steps amplify last-bit gradient differences
+# z9 subm convs against the slab kernel on the full rulebook at bf16: both sum
+# the same exact fp32 products (bf16 x bf16) of a row, K = 27 * Cin of them, in
+# other orders, so they differ by at most 2 (K - 1) 2^-24 sum_k |x_k w_k| (the
+# classical bound for recursive summation, on each side), plus SLAB_ATOL. The
+# bench tree's activations reach 1e10 (noble-elevator-58's norms), where
+# SLAB_ATOL alone, set at unit scale, says nothing
+FP32_UNIT = 2.0 ** -24
+# z9 against full plans at bf16, whole forward: the per-conv differences above
+# flip bf16 roundings of later operands, and the network amplifies them. The
+# yardstick is the full plan itself: its bf16 forward with every conv through
+# route 3 differs from the one with the slab kernel by summation order alone.
+# The z9 forward (route 3 on the subm convs, the slab kernel on the rest) must
+# stay within twice that spread of the slab-kernel forward, plus the model
+# tolerance's atol, and agree on as many classes less 0.1 %
+Z9_SPREAD_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -237,7 +274,7 @@ def skeleton_stages(torch, cloud, device):
     root_dist = tree_distances(preds, (hop * hop).sum(dim=1).sqrt(), n)
     out = dict(keep=keep, rep=rep, edges=graph.edges, edge_valid=graph.valid,
                weights=graph.weights, labels=labels, comp_ids=comp_ids, roots=roots,
-               dist=dist, preds=preds, root_dist=root_dist)
+               dist=dist, preds=preds, root_dist=root_dist, pts=pts, radii=radii)
     return {name: t.cpu().numpy() for name, t in out.items()}
 
 
@@ -490,6 +527,326 @@ def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
     result["dp"] = dp
     log(f"parallel: {result}")
     return result, multi_launches
+
+def median_ms(torch, fn, repeats: int = 5) -> float:
+    """Median milliseconds of `repeats` calls after one warm-up, each call
+    timed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def z9_phase(torch, np, mi16, batches):
+    """Phase 16 (a)-(c) on the bench tree's batches: the lookup rulebook
+    builders and subm_rulebook9 (card against CPU), the z9 subm convs against
+    the full rulebook's (route 3 at fp32, the slab kernel at bf16), SmartTree
+    on z9 plans against full plans, the slab kernel's launches and the times.
+    Returns the `z9` part of the phase's line."""
+    from smart_tree_tpu_torch.core import rulebook as rbm
+    from smart_tree_tpu_torch.core import slab_conv, sparse_ops
+    from smart_tree_tpu_torch.core.sparse_ops import ConvConfig, gather_conv
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    model = mi16.model
+    planes = model.unet_planes
+    # the plans the bf16 forward settles on (overflow reruns included) and
+    # their level capacities, which the z9 plans take too
+    settled = []
+    for vb in batches:
+        level_caps = None
+        while True:
+            x, plan, _ = mi16._plan_batch(vb, level_caps)
+            counts = [int(lv.count) for lv in plan.levels]
+            caps = [lv.keys.shape[0] for lv in plan.levels]
+            if all(c <= k for c, k in zip(counts, caps)):
+                break
+            level_caps = ModelInference._retry_caps(counts, caps)
+        settled.append((x, tuple(caps), plan))
+
+    # (a) rulebooks
+    checked = 0
+    for x, _, plan in settled:
+        for lvl, lv in enumerate(plan.levels):
+            rb9 = rbm.subm_rulebook9(lv.keys, lv.spatial_shape, plan.batch_size)
+            rb9_cpu = rbm.subm_rulebook9(lv.keys.cpu(), lv.spatial_shape, plan.batch_size)
+            if not (torch.equal(rb9.pos.cpu(), rb9_cpu.pos)
+                    and torch.equal(rb9.qkey.cpu(), rb9_cpu.qkey)):
+                raise AssertionError(f"subm_rulebook9 level {lvl}: the card differs from the CPU")
+            if not torch.equal(sparse_ops._window_rulebook(rb9, rb9.pos, rb9.qkey), lv.subm_rb):
+                raise AssertionError(f"level {lvl}: the z9 window rows are not the subm rulebook")
+            checked += 1
+            if lvl + 1 < len(plan.levels):
+                nxt = plan.levels[lvl + 1]
+                args = (lv.keys, nxt.keys, lv.spatial_shape, nxt.spatial_shape, plan.batch_size)
+                if not torch.equal(rbm.strided_rulebook(*args), lv.down_rb):
+                    raise AssertionError(f"level {lvl}: strided_rulebook != the plan's")
+                if not torch.equal(rbm.inverse_rulebook(*args), lv.up_rb):
+                    raise AssertionError(f"level {lvl}: inverse_rulebook != the plan's")
+                checked += 2
+
+    def plans(mode):
+        return [(x, model.build_plan(x, level_capacities=caps, subm_mode=mode))
+                for x, caps, _ in settled]
+
+    z9_plans, full_plans = plans("z9"), plans("full")
+    full_rb = {id(zl.subm_rb): fl.subm_rb
+               for (_, zp), (_, fp) in zip(z9_plans, full_plans)
+               for zl, fl in zip(zp.levels, fp.levels)}
+
+    def forward(pairs, precision):
+        with torch.no_grad():
+            return [model(p, x.feats, ConvConfig(precision, cap_hint=x.capacity))
+                    for x, p in pairs]
+
+    # (b) and the bf16 per-conv check: every subm conv of a z9 forward held
+    # on its own inputs against the full rulebook's conv (these comparison
+    # launches of the slab kernel are made outside the counted run below)
+    per_conv = {"float32": [], "bfloat16": []}
+    zconv = sparse_ops._gather_conv_z
+
+    def held(feats, rb, w, cfg):
+        out = zconv(feats, rb, w, cfg)
+        full = full_rb[id(rb)]
+        if cfg.precision == "float32":
+            ref = gather_conv(feats, full, w, cfg)       # route 3
+            ok = torch.allclose(out, ref, rtol=1e-6, atol=1e-6)
+        else:
+            ref = slab_conv.slab_gather_conv(feats, full, w)
+            k = full.shape[1] * w.shape[1]
+            scale = sparse_ops._gather_gemm(feats.abs(), full, w.abs(), cfg, False)
+            ok = bool(((out - ref).abs() <= SLAB_ATOL + 2 * (k - 1) * FP32_UNIT * scale).all())
+        err = float((out - ref).abs().max())
+        if not ok:
+            raise AssertionError(f"{cfg.precision} z9 subm conv {tuple(w.shape)} M={full.shape[0]}: "
+                                 f"max abs err {err} against the full rulebook")
+        per_conv[cfg.precision].append(err)
+        return out
+
+    sparse_ops._gather_conv_z = held
+    try:
+        outs = {(mode, prec): forward(pairs, prec)
+                for prec in ("float32", "bfloat16")
+                for mode, pairs in (("z9", z9_plans), ("full", full_plans))}
+    finally:
+        sparse_ops._gather_conv_z = zconv
+    # the yardstick: the full plans at bf16 with no slab kernel (a row
+    # threshold past every rulebook)
+    with torch.no_grad():
+        spread_ref = [model(p, x.feats, ConvConfig("bfloat16", cap_hint=1 << 40))
+                      for x, p in full_plans]
+    subm_per_forward = len(per_conv["float32"])
+    if subm_per_forward != sum(1 for _, p in z9_plans for c in unet_convs(p, planes)
+                               if ".Head." in c[0] or ".Tail." in c[0]):
+        raise AssertionError(f"{subm_per_forward} z9 subm convs in one forward")
+
+    # (c) the whole forward, z9 against full: per head the largest difference
+    # over the batches' active rows, and the share of rows whose class agrees
+    def compare(outs_a, outs_b):
+        err, agree, total = {}, 0, 0
+        for a, b, (x, _) in zip(outs_a, outs_b, full_plans):
+            act = x.active
+            for k in ("radius", "direction", "class_l"):
+                d = float((a[k][act].float() - b[k][act].float()).abs().max())
+                err[k] = max(err.get(k, 0.0), d)
+            agree += int((a["class_l"][act].argmax(1) == b["class_l"][act].argmax(1)).sum())
+            total += int(act.sum())
+        return err, agree / total
+
+    head_err = {}
+    for prec in ("float32", "bfloat16"):
+        err, agree = compare(outs[("z9", prec)], outs[("full", prec)])
+        head_err[prec] = dict(err, class_agreement=agree)
+    fp32 = head_err["float32"]
+    for a, b, (x, _) in zip(outs[("z9", "float32")], outs[("full", "float32")], full_plans):
+        for k in ("radius", "direction", "class_l"):
+            if not torch.allclose(a[k][x.active], b[k][x.active], **MODEL_TOL):
+                raise AssertionError(f"fp32 z9 forward {k}: max abs err {fp32[k]}")
+    spread, spread_agree = compare(spread_ref, outs[("full", "bfloat16")])
+    head_err["bfloat16_spread"] = dict(spread, class_agreement=spread_agree)
+    bf16 = head_err["bfloat16"]
+    for k in ("radius", "direction", "class_l"):
+        if bf16[k] > Z9_SPREAD_FACTOR * spread[k] + MODEL_TOL["atol"]:
+            raise AssertionError(f"bf16 z9 forward {k}: max abs err {bf16[k]}, the full plan's "
+                                 f"own spread {spread[k]}")
+    if bf16["class_agreement"] < spread_agree - 1e-3:
+        raise AssertionError(f"bf16 z9 forward: class agreement {bf16['class_agreement']}, "
+                             f"the full plan's own {spread_agree}")
+
+    # the slab kernel's launches in one bf16 forward on each plan, against the
+    # count the plans imply: every 27-column conv past the row threshold, on
+    # the z9 plans only the strided (Encode) and inverse (Decode) ones
+    def expected(pairs, subm_too):
+        n = 0
+        for x, p in pairs:
+            smin = ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
+            for name, rb, *_ in unet_convs(p, planes):
+                strided = name.endswith(("Encode", "Decode"))
+                n += int((strided or subm_too) and rb.shape[0] >= smin)
+        return n
+
+    launches = {}
+    for mode, pairs in (("z9", z9_plans), ("full", full_plans)):
+        slab_conv.slab_gather_conv.launches = 0
+        forward(pairs, "bfloat16")
+        torch.cuda.synchronize()
+        launches[mode] = slab_conv.slab_gather_conv.launches
+    want = {"z9": expected(full_plans, False), "full": expected(full_plans, True)}
+    if launches != want or launches["z9"] == 0:
+        raise AssertionError(f"slab launches per bf16 forward {launches}, the plans imply {want}")
+
+    # times: the plans' build and the UNet, per mode and precision
+    times = {}
+    for mode in ("z9", "full"):
+        times[f"{mode}_plan_ms"] = median_ms(
+            torch, lambda: [model.build_plan(x, level_capacities=caps, subm_mode=mode)
+                            for x, caps, _ in settled])
+        for prec in ("float32", "bfloat16"):
+            pairs = z9_plans if mode == "z9" else full_plans
+            times[f"{mode}_{prec}_forward_ms"] = median_ms(torch, lambda: forward(pairs, prec))
+    result = {
+        "batches": len(settled), "rulebooks_checked": checked,
+        "subm_convs_per_forward": subm_per_forward,
+        "subm_conv_max_abs_err": {k: max(v) for k, v in per_conv.items()},
+        "head_max_abs_err": head_err,
+        "slab_launches_per_bf16_forward": launches, "times": times,
+    }
+    log(f"z9: {result}")
+    return result
+
+
+def remaining_phase(torch, np, mi16, batches, labelled, skeleton, ply_expected, stages,
+                    scripts, card):
+    """Phase 16: z9_phase, then (d) connect_skeletons, sssp and sample_tree,
+    the card against the CPU, and (e) the viewer on the bench tree, plus the
+    data scripts' numbers `scripts` (run on phase 11's corpus). Returns the
+    `remaining_modules` line."""
+    import copy
+    import logging
+
+    from smart_tree_tpu_torch.graph import sssp, tree_distances
+    from smart_tree_tpu_torch.skeleton import connect_skeletons, sample_tree
+    from smart_tree_tpu_torch.viz import viewer
+
+    t0 = time.perf_counter()
+    result = {"card": card, "z9": z9_phase(torch, np, mi16, batches)}
+
+    # (d) connect the bench tree's skeletons on the card and on the CPU, at the
+    # default distance and at one past every secondary root, which grafts all
+    if len(skeleton.skeletons) < 2:
+        raise AssertionError("phase 8 gave one skeleton: nothing to connect")
+    connected = {}
+    for max_distance in (0.5, float("inf")):
+        joined = {dev: connect_skeletons(copy.deepcopy(skeleton), max_distance, device=dev)
+                  for dev in ("cuda", "cpu")}
+        same_skeletons(np, joined["cuda"], joined["cpu"], "connect_skeletons card vs cpu",
+                       GEOM_TOL)
+        for a, b in zip(joined["cuda"].skeletons, joined["cpu"].skeletons):
+            if list(a.branches) != list(b.branches):
+                raise AssertionError("connect_skeletons: the card and the CPU number branches "
+                                     "apart")
+        connected[str(max_distance)] = len(joined["cpu"].skeletons)
+    if connected["inf"] != 1:
+        raise AssertionError(f"connect_skeletons at any distance left {connected['inf']} "
+                             "skeletons")
+    # sssp from the small tree's first root, then sample_tree on its component
+    s = stages
+    n = len(s["pts"])
+    root = int(s["roots"][0])
+    if root < 0:
+        raise AssertionError("the small tree's first component has no root")
+    paths = {}
+    for dev in ("cuda", "cpu"):
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        dist, pred = sssp(up(s["edges"]), up(s["weights"]), up(s["edge_valid"]), root, n)
+        hop = up(s["pts"]) - up(s["pts"])[pred.clamp_min(0)]
+        rd = tree_distances(pred, (hop * hop).sum(1).sqrt(), n)
+        paths[dev] = (dist.cpu().numpy(), pred.cpu().numpy(), rd.cpu().numpy())
+    np.testing.assert_array_equal(paths["cuda"][1], paths["cpu"][1], err_msg="sssp preds")
+    fin = np.isfinite(paths["cpu"][0])
+    np.testing.assert_array_equal(np.isfinite(paths["cuda"][0]), fin, err_msg="sssp reach")
+    np.testing.assert_allclose(paths["cuda"][0][fin], paths["cpu"][0][fin], **DIST_TOL,
+                               err_msg="sssp dist")
+    _, pred, rd = paths["cpu"]
+    mask = s["labels"] == s["labels"][root]
+    trees = {dev: sample_tree(s["pts"], s["radii"], pred, rd, mask, device=dev)
+             for dev in ("cuda", "cpu")}
+    if len(trees["cpu"]) < 2 or list(trees["cuda"]) != list(trees["cpu"]):
+        raise AssertionError(f"sample_tree: branches {list(trees['cuda'])} on the card, "
+                             f"{list(trees['cpu'])} on the CPU")
+    for k, a in trees["cuda"].items():
+        b = trees["cpu"][k]
+        if a.parent_id != b.parent_id:
+            raise AssertionError(f"sample_tree branch {k}: parent {a.parent_id} != {b.parent_id}")
+        np.testing.assert_allclose(a.xyz, b.xyz, **GEOM_TOL, err_msg=f"sample_tree {k} xyz")
+        np.testing.assert_allclose(a.radii, b.radii, **GEOM_TOL, err_msg=f"sample_tree {k} radii")
+    result["skeleton"] = {
+        "skeletons_before": len(skeleton.skeletons),
+        "skeletons_after_connect_by_max_distance": connected,
+        "sssp_reached": int(fin.sum()), "sssp_vertices": n,
+        "sample_tree_branches": len(trees["cpu"]),
+    }
+
+    # (e) the viewer's geometry against phase 8's PLYs, and the view itself
+    items = {i.name: i.data for i in viewer.viewer_items(labelled, skeleton,
+                                                        cmap=((1, 0, 0), (0, 1, 0)))}
+    found = {
+        "cloud.ply": {"vertex": len(items["cloud"]["xyz"])},
+        "seg_cld.ply": {"vertex": len(items["seg_cloud"]["xyz"])},
+        "skeleton.ply": {"vertex": len(items["skeleton"]["vertices"]),
+                         "edge": len(items["skeleton"]["edges"])},
+        "mesh.ply": {"vertex": len(items["tube_mesh"]["vertices"]),
+                     "face": len(items["tube_mesh"]["triangles"])},
+    }
+    if found != ply_expected:
+        raise AssertionError(f"viewer_items: {found}, phase 8's PLYs hold {ply_expected}")
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warned.append(record.getMessage())
+    logging.getLogger(viewer.__name__).addHandler(handler)
+    try:
+        if viewer.HAVE_O3D:
+            log("open3d is installed here: view_skeleton would open a window, not called")
+        elif viewer.view_skeleton(skeleton, labelled) is not None or len(warned) != 1:
+            raise AssertionError(f"view_skeleton without open3d: warnings {warned}")
+    finally:
+        logging.getLogger(viewer.__name__).removeHandler(handler)
+    result["viewer"] = {"items": sorted(items), "ply_counts": found, "warnings": warned}
+    result["scripts"] = scripts
+    result["phase_s"] = time.perf_counter() - t0 + scripts["seconds"]
+    log(f"remaining modules: {result}")
+    return result
+
+
+def corpus_scripts(work: Path) -> dict:
+    """split_data and one bench_dataloader epoch on a corpus directory of
+    tree npz files: the split's sizes and the epoch's numbers."""
+    from smart_tree_tpu_torch.scripts import bench_dataloader, split_data
+
+    t0 = time.perf_counter()
+    out = work / "split_data.json"
+    if split_data.main([str(work), "-o", str(out)]) != 0:
+        raise AssertionError("split_data returned non-zero")
+    split = json.loads(out.read_text())
+    epochs: list = []
+    if bench_dataloader.main([str(work), "--json-path", str(out), "--epochs", "1"],
+                             stats=epochs) != 0:
+        raise AssertionError("bench_dataloader returned non-zero")
+    if len(epochs) != 1 or epochs[0]["items"] != len(split["train"]):
+        raise AssertionError(f"bench_dataloader epoch {epochs}, split {split}")
+    result = {"split_sizes": {k: len(v) for k, v in split.items()},
+              "bench_dataloader_epoch": epochs[0], "seconds": time.perf_counter() - t0}
+    log(f"corpus scripts: {result}")
+    return result
+
 
 def main() -> int:
     import torch
@@ -1034,6 +1391,8 @@ def main() -> int:
                         served_feature_mode=served.feature_mode,
                         served_log_radius_max=float(raw_served["radius"].max()),
                         served_exp_overflows=exp_overflows)
+        # phase 16 (e)'s data scripts, while phase 11's corpus exists
+        scripts16 = corpus_scripts(work)
 
     # 12. a few train steps on the small tree, the card against the CPU
     fit_card = train_mod.fit_smoke(small_raw, steps=6, capacity=16384)
@@ -1052,6 +1411,10 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel, multi_launches = parallel_phase(torch, np, cloud, small_raw, fit_card, card)
     parallel["phase_s"] = time.perf_counter() - t0
+
+    # 16. the modules ported last
+    remaining = remaining_phase(torch, np, mi16, batches, out16, skeleton, expected, on_cpu,
+                                scripts16, card)
 
     def summed(rows, key):
         return sum(r[key] for r in rows)
@@ -1081,6 +1444,7 @@ def main() -> int:
               launches=slab_launches, launches_per_forward=slab_per_forward,
               launches_per_culled_forward=transfers["modes"]["culled"]["slab_launches"],
               launches_per_multi_device_forward=multi_launches,
+              launches_per_z9_bf16_forward=remaining["z9"]["slab_launches_per_bf16_forward"]["z9"],
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -1111,6 +1475,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"transfers": transfers}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"remaining_modules": remaining}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -12,16 +12,22 @@ Conventions (cross-correlation, torch-compatible):
 
 Scatters into a buffer with one spare row stand in for JAX's mode="drop":
 out-of-range targets route to the spare row, which is then cut off.
+
+Besides the builders the plan uses, the module has the JAX package's
+compact submanifold form (`subm_rulebook9`, `SubmRB9`) and the sorted-lookup
+builders `strided_rulebook` / `inverse_rulebook` that the scatter builders
+are held against.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .coords import INVALID_KEY, lookup, pack_coords, unique_keys, unpack_keys
+from .coords import INVALID_KEY, key_bits, lookup, pack_coords, unique_keys, unpack_keys
 
 
 def kernel_offsets(kernel_size: int) -> np.ndarray:
@@ -88,6 +94,52 @@ def subm_rulebook(
     cols = torch.arange(k3 - 1, c, -1, device=dev)[None, :].expand(n, c)
     rb[jrow, cols] = rows[:, None].expand(n, c)
     return rb[:n]
+
+
+def xy_offsets() -> np.ndarray:
+    """[9, 3] int32 (dx, dy, 0) offsets, kx-major (the first two axes of
+    kernel_offsets(3) order)."""
+    r = np.arange(-1, 2)
+    dx, dy = np.meshgrid(r, r, indexing="ij")
+    return np.stack([dx, dy, np.zeros_like(dx)], axis=-1).reshape(-1, 3).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class SubmRB9:
+    """Compact submanifold rulebook: per voxel and (dx, dy) offset, the
+    sorted-table insertion position of the (dx, dy, 0) query key. The dz
+    neighbours lie in the 3-row window around it (see subm_rulebook9)."""
+
+    keys: torch.Tensor  # [N] the level's sorted voxel keys (int64)
+    pos: torch.Tensor   # [N, 9] int32 insertion positions
+    qkey: torch.Tensor  # [N, 9] int64 query keys (uint32 values; INVALID_KEY out of range)
+    zbits: int
+    zmax: int
+
+
+def subm_rulebook9(
+    keys: torch.Tensor, spatial_shape: Sequence[int], batch_size: int
+) -> SubmRB9:
+    """Compact submanifold rulebook from the z-contiguity of sorted keys.
+
+    Keys order z fastest, so for a query (x+dx, y+dy, z) with key q the rows
+    holding q-1, q and q+1 (all three dz neighbours) lie in [pos-1, pos+1],
+    pos = searchsorted(keys, q): 8 searches for the 8 off-centre (dx, dy)
+    columns; the (0, 0) column is the row's own index (keys are unique)."""
+    coords = unpack_keys(keys, spatial_shape, batch_size)
+    active = keys != INVALID_KEY
+    offs = xy_offsets()
+    q = _query_keys(coords, offs, spatial_shape, batch_size, active)  # [N, 9]
+    cols = []
+    for k in range(9):
+        if offs[k, 0] == 0 and offs[k, 1] == 0:
+            cols.append(torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device))
+        else:
+            cols.append(torch.searchsorted(keys, q[:, k].contiguous(), side="left")
+                        .to(torch.int32))
+    _, _, _, bz = key_bits(spatial_shape, batch_size)
+    return SubmRB9(keys=keys, pos=torch.stack(cols, dim=1), qkey=q, zbits=int(bz),
+                   zmax=int(spatial_shape[2]))
 
 
 def _corner_candidates(coords: torch.Tensor, active: torch.Tensor):
@@ -175,3 +227,43 @@ def inverse_from_strided(drb: torch.Tensor, fine_capacity: int) -> torch.Tensor:
     urb = torch.full((fine_capacity + 1, k3), -1, dtype=torch.int32, device=dev)
     urb[frow, cols] = orows
     return urb[:fine_capacity]
+
+
+def strided_rulebook(
+    in_keys: torch.Tensor,
+    out_keys: torch.Tensor,
+    in_spatial_shape: Sequence[int],
+    out_spatial_shape: Sequence[int],
+    batch_size: int,
+) -> torch.Tensor:
+    """Strided gather rulebook [N_out, 27] by sorted lookup: per output voxel
+    o and offset k, the input row at 2*o - 1 + k (or -1). The lookup form of
+    `downsample_with_rulebook`'s scatter."""
+    out_coords = unpack_keys(out_keys, out_spatial_shape, batch_size)
+    base = torch.cat([out_coords[:, :1], 2 * out_coords[:, 1:] - 1], dim=1)
+    q = _query_keys(base, kernel_offsets(3), in_spatial_shape, batch_size,
+                    out_keys != INVALID_KEY)
+    return lookup(in_keys, q.reshape(-1)).reshape(q.shape)
+
+
+def inverse_rulebook(
+    fine_keys: torch.Tensor,
+    coarse_keys: torch.Tensor,
+    fine_spatial_shape: Sequence[int],
+    coarse_spatial_shape: Sequence[int],
+    batch_size: int,
+) -> torch.Tensor:
+    """Inverse-conv gather rulebook [N_fine, 27] by sorted lookup: per fine
+    voxel f and offset k, the coarse row o with 2*o - 1 + k = f, that is
+    o = (f + 1 - k) / 2 where the division is exact; -1 otherwise. The lookup
+    form of `inverse_from_strided`'s transpose."""
+    fine_coords = unpack_keys(fine_keys, fine_spatial_shape, batch_size)
+    offs = torch.as_tensor(kernel_offsets(3), device=fine_keys.device)
+    n, k3 = fine_keys.shape[0], offs.shape[0]
+    num = fine_coords[:, None, 1:] + 1 - offs[None]  # [N, 27, 3]
+    exact = (torch.remainder(num, 2) == 0).all(dim=-1)
+    o = torch.div(num, 2, rounding_mode="floor")
+    q = torch.cat([fine_coords[:, None, :1].expand(n, k3, 1), o], dim=-1).reshape(-1, 4)
+    keys = pack_coords(q, coarse_spatial_shape, batch_size,
+                       valid=(exact & (fine_keys != INVALID_KEY)[:, None]).reshape(-1))
+    return lookup(coarse_keys, keys).reshape(n, k3)

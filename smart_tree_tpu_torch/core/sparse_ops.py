@@ -18,6 +18,10 @@ dispatch rule for rule:
      past `row_chunk` (32768) and a multiple of it. Below that it is one
      gather and one matmul.
 
+A compact submanifold rulebook (`SubmRB9`, plans built with
+subm_mode="z9") is checked before the three routes, as in the JAX package:
+such a conv never takes a hand kernel (`_gather_conv_z`).
+
 Both kernels are forward-only, as their JAX counterparts are. A conv whose
 `feats` or `weights` require a gradient (under grad mode) therefore takes
 route 3 whatever its shape: autograd differentiates the gather and the
@@ -42,6 +46,8 @@ from dataclasses import dataclass
 import torch
 
 from . import fused_conv, kernels, slab_conv
+from .coords import INVALID_KEY
+from .rulebook import SubmRB9
 
 # Rulebooks at least this tall take the slab kernel (the JAX package's
 # measured threshold); the batch capacity scales it up past 262,144 rows.
@@ -184,28 +190,95 @@ def _operand(x: torch.Tensor, precision: str) -> torch.Tensor:
 
 def gather_conv(
     feats: torch.Tensor,
-    rulebook: torch.Tensor,
+    rulebook: torch.Tensor | SubmRB9,
     weights: torch.Tensor,
     cfg: ConvConfig = ConvConfig(),
 ) -> torch.Tensor:
     """Sparse conv from a gather rulebook.
 
     feats [N, Cin] (zero rows at padding), rulebook [M, K3] int32 rows into
-    feats (-1 missing), weights [K3, Cin, Cout] -> [M, Cout].
+    feats (-1 missing) or a SubmRB9 over feats' own table, weights
+    [K3, Cin, Cout] -> [M, Cout].
 
     Routes 1 and 2 (the hand kernels) are taken only where no gradient is
     needed; inputs that require grad go down route 3."""
+    if isinstance(rulebook, SubmRB9):
+        return _gather_conv_z(feats, rulebook, weights, cfg)
     k3, cin, cout = weights.shape
     hand = not kernels.needs_grad(feats, weights)
     if hand and k3 == 27 and rulebook.shape[0] >= cfg.slab_min_rows and cfg.precision == "bfloat16":
         return slab_conv.slab_gather_conv(feats, rulebook, weights).to(feats.dtype)
     if hand and cfg.fused and fused_conv.should_use_fused(rulebook.shape[0], k3, cin, cout):
         return fused_conv.fused_gather_gemm(feats, rulebook, weights)
+    chunked = cfg.chunked(rulebook.shape[0], k3 * cin)
+    return _gather_gemm(feats, rulebook, weights, cfg, chunked)
+
+
+def _gather_gemm(feats, rulebook, weights, cfg: ConvConfig, chunked: bool) -> torch.Tensor:
+    """Route 3: gather(feats by rulebook) @ W in cfg's precision, in row
+    chunks when `chunked`."""
+    k3, cin, cout = weights.shape
     f = _operand(feats, cfg.precision)
     w2 = _operand(weights, cfg.precision).reshape(k3 * cin, cout)
-    if cfg.chunked(rulebook.shape[0], k3 * cin):
+    if chunked:
         return _ChunkedGatherConv.apply(f, rulebook, w2, cfg.row_chunk).to(feats.dtype)
     return (_GatherRows.apply(f, rulebook) @ w2).to(feats.dtype)
+
+
+def _window_rulebook(rb: SubmRB9, pos: torch.Tensor, qkey: torch.Tensor) -> torch.Tensor:
+    """The [m, 27] gather rulebook that rows `pos` / `qkey` [m, 9] of a
+    SubmRB9 stand for, in kernel_offsets(3) order ((dx, dy) kx-major, dz
+    fastest).
+
+    For each (dx, dy) column the keys of the 3-row window [pos-1, pos+1]
+    (INVALID_KEY sentinels past either end) are matched against the query
+    key walked by dz in {-1, 0, +1}; the matching row, or -1. Keys hold
+    uint32 values in int64, so q - 1 is wrapped mod 2^32 as the JAX
+    package's uint32 sum is, and the z-field edges are guarded as there
+    (at z = 0 a -1 borrows into y, at z = zmax - 1 a +1 may carry into it)."""
+    keys = rb.keys
+    n = keys.shape[0]
+    dev = keys.device
+    inv = keys.new_full((1,), INVALID_KEY)
+    kpad = torch.cat([inv, keys, inv])                      # row r at r + 1
+    posc = pos.long().clamp(0, n - 1)[..., None]            # [m, 9, 1]
+    kw = kpad[posc + torch.arange(3, device=dev)]           # [m, 9, 3 slots]: rows pos-1+s
+    dz = torch.tensor([-1, 0, 1], dtype=torch.int64, device=dev)
+    tgt = (qkey[..., None] + dz) & 0xFFFFFFFF               # [m, 9, 3 dz]
+    zq = qkey & ((1 << rb.zbits) - 1)
+    ok = torch.stack([zq >= 1, torch.ones_like(zq, dtype=torch.bool), zq + 1 < rb.zmax],
+                     dim=-1) & (qkey != INVALID_KEY)[..., None]
+    row = torch.full_like(tgt, -1)
+    for s in (2, 1, 0):                                     # the first matching slot wins
+        row = torch.where(kw[..., s : s + 1] == tgt, posc + (s - 1), row)
+    hit = ok & (row >= 0) & (row < n)
+    return torch.where(hit, row, -1).to(torch.int32).reshape(pos.shape[0], 27)
+
+
+def _gather_conv_z(feats: torch.Tensor, rb: SubmRB9, weights: torch.Tensor,
+                   cfg: ConvConfig) -> torch.Tensor:
+    """Submanifold conv from the compact z-window rulebook (the JAX
+    package's `_gather_conv_z`).
+
+    The JAX form gathers nine 3*Cin-wide windows [pos-1, pos+1] of feats and
+    routes their slots to the dz columns by a key-match product before one
+    GEMM. Routing the window's row numbers instead of its rows gives the
+    same product with no [M, 9, 3, 3, Cin] routing operands: the matched
+    rows make a 27-column rulebook (`_window_rulebook`, equal to the full
+    subm rulebook entry for entry), which route 3 gathers. So the gradient is
+    route 3's: only matched entries travel back, through `index_add_`, and
+    no hand kernel is taken. Rows are chunked where the JAX package chunks
+    them (`_map_row_chunks` over pos / qkey at width 27 * Cin); the window
+    rulebook is then made chunk by chunk too."""
+    k3, cin, _ = weights.shape
+    if k3 != 27:
+        raise ValueError(f"a SubmRB9 rulebook needs 27 kernel offsets, got {k3}")
+    m = rb.pos.shape[0]
+    chunked = cfg.chunked(m, 27 * cin)
+    step = cfg.row_chunk if chunked else max(m, 1)
+    rulebook = torch.cat([_window_rulebook(rb, rb.pos[r : r + step], rb.qkey[r : r + step])
+                          for r in range(0, max(m, 1), step)])
+    return _gather_gemm(feats, rulebook, weights, cfg, chunked)
 
 
 def linear(feats: torch.Tensor, weights: torch.Tensor, precision: str = "float32") -> torch.Tensor:

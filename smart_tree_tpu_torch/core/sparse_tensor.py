@@ -7,12 +7,12 @@ rows, padding rows hold INVALID_KEY and zero features.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence, Tuple
 
 import torch
 
-from .coords import INVALID_KEY, pack_coords, sort_keys
+from .coords import INVALID_KEY, pack_coords, sort_keys, unpack_keys
 
 
 @dataclass(frozen=True)
@@ -26,6 +26,21 @@ class SparseVoxelTensor:
     @property
     def capacity(self) -> int:
         return self.keys.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.feats.shape[1]
+
+    def coords(self) -> torch.Tensor:
+        """int32 [N, 4] (b, x, y, z); padding rows are meaningless, mask by
+        active."""
+        return unpack_keys(self.keys, self.spatial_shape, self.batch_size)
+
+    def n_active(self) -> torch.Tensor:
+        return self.active.sum().to(torch.int32)
+
+    def replace_feats(self, feats: torch.Tensor) -> "SparseVoxelTensor":
+        return replace(self, feats=feats)
 
     @staticmethod
     def from_coords(

@@ -55,6 +55,17 @@ class Cloud:
     def filter_by_class(self, classes) -> "Cloud":
         return self.filter(np.isin(self.class_l.reshape(-1), np.asarray(classes)))
 
+    def filter_by_skeleton(self, skeleton, threshold: float = 1.1, device=None) -> "Cloud":
+        """Keep the points within threshold * radius of the skeleton's tubes.
+        The point-tube queries run on the card unless `device` names another."""
+        from ..data.tube import collate_tubes
+        from ..utils.queries import skeleton_to_points
+
+        dists, radii, _ = skeleton_to_points(
+            np.asarray(self.xyz), collate_tubes(skeleton.to_tubes()), device=device
+        )
+        return self.filter(dists < radii * threshold)
+
     # transforms (drop labels)
     def scale(self, factor) -> "Cloud":
         return Cloud(self.xyz * factor, self.rgb, filename=self.filename)
@@ -64,6 +75,11 @@ class Cloud:
 
     def rotate(self, rot_mat) -> "Cloud":
         return Cloud(self.xyz @ rot_mat, self.rgb, filename=self.filename)
+
+    @property
+    def root_idx(self) -> int:
+        """The lowest point (y is up)."""
+        return int(np.argmin(self.xyz[:, 1]))
 
     @property
     def min_xyz(self):
@@ -89,6 +105,12 @@ class Cloud:
     @property
     def direction(self):
         return self.medial_vector / (self.radius[:, None] + 1e-12)
+
+    @property
+    def number_classes(self) -> int:
+        if self.class_l is None:
+            return 1
+        return int(self.class_l.max()) + 1
 
     @staticmethod
     def from_numpy(**kwargs) -> "Cloud":

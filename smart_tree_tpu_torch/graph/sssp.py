@@ -24,6 +24,13 @@ from .table import NeighborTable, build_neighbor_table
 _INF = float("inf")
 
 
+def sssp(edges, weights, edge_valid, source, num_vertices: int):
+    """Undirected weighted shortest paths from one source: `sssp_multi` with
+    a single source. Returns (dist [n] float32, pred [n] int64)."""
+    src = torch.as_tensor(source, dtype=torch.int64, device=edges.device).reshape(1)
+    return sssp_multi(edges, weights, edge_valid, src, num_vertices)
+
+
 def _dist_init(sources, num_vertices: int):
     """+inf everywhere, 0 at the sources (-1 entries are padding)."""
     dist = torch.full((num_vertices,), _INF, device=sources.device)

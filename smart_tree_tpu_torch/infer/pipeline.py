@@ -1,7 +1,8 @@
 """Pipeline orchestrator: cloud in -> skeleton out (counterpart of
 `smart_tree_tpu/infer/pipeline.py`, same constructor keys and processing
 order): preprocess -> NN inference -> class filter -> skeletonize -> prune /
-repair / smooth -> save. The interactive views are not ported.
+repair / smooth -> save. The interactive views go through viz/viewer.py,
+which logs a warning and returns without open3d.
 """
 
 from __future__ import annotations
@@ -132,7 +133,11 @@ class Pipeline:
         save_ply_cloud(sp / "seg_cld.ply", labelled.xyz, seg_rgb)
 
     def _view_cloud(self, cloud: Cloud) -> None:
-        raise NotImplementedError("view_model_output: the viewer is not ported")
+        from ..viz.viewer import view_cloud
+
+        view_cloud(cloud, self.cmap)
 
     def _view_skeleton(self, skeleton, cloud) -> None:
-        raise NotImplementedError("view_skeletons: the viewer is not ported")
+        from ..viz.viewer import view_skeleton
+
+        view_skeleton(skeleton, cloud)

@@ -13,8 +13,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..core.plan import UNetPlan
+from ..core.plan import UNetPlan, build_plan
 from ..core.sparse_ops import ConvConfig
+from ..core.sparse_tensor import SparseVoxelTensor
 from .blocks import ConvNormAct, SparseConv, SparseFC, UBlock
 from .norm import MaskedBatchNorm
 
@@ -65,3 +66,8 @@ class SmartTree(nn.Module):
             "direction_raw": direction_raw,
             "class_l": class_l,
         }
+
+    def build_plan(self, x: SparseVoxelTensor, **kw) -> UNetPlan:
+        """The plan of `x` for this model's levels (keywords of
+        core/plan.py::build_plan, subm_mode among them)."""
+        return build_plan(x, num_levels=len(self.unet_planes), **kw)

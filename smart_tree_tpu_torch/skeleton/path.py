@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.branch import BranchSkeleton
+from ..device import resolve_device
 from ..neighbors.knn import _knn_impl
 
 log = logging.getLogger(__name__)
@@ -100,6 +101,17 @@ def trace_route_jump(jumps, start, allocated, hop_cap: int):
     v, length, term = _trace_chain(jumps, start, ext, hop_cap)
     length = int(length)
     return v[:length].flip(0), length, int(term)
+
+
+@torch.no_grad()
+def select_path_points(points, points_valid, path_pts, path_radii, path_valid):
+    """Mask of points whose nearest valid path vertex is within that vertex's
+    radius, the whole path at once (the tracer sweeps it in windows,
+    `_select_path_points_chunked`)."""
+    r_max = torch.where(path_valid, path_radii, 0.0).max()
+    d, i = _knn_impl(points, path_pts, points_valid, path_valid, r_max**2, 1)
+    d, i = d[:, 0], i[:, 0]
+    return (i >= 0) & (d < path_radii[i.clamp_min(0)])
 
 
 SEL_CHUNK = 128
@@ -213,6 +225,57 @@ def _branch_vertex_runs(path_branch, path_pos, count):
             yield b, v
 
 
+def _traced(what, medial_pts, radii, preds, distances, component_mask, hop_cap,
+            max_branches, strict, host_pts, host_radii, stats=None):
+    """Run the greedy loop, check the caps (strict: raise when either
+    truncated real work) and pull the result once: (branch vertex runs,
+    parents, host points, host radii)."""
+    res = sample_tree_device(medial_pts, radii, preds, distances, component_mask,
+                             hop_cap, max_branches)
+    if stats is not None:
+        stats["branches"] = res.branch_count
+    if strict:
+        if res.hop_cap_hits:
+            raise RuntimeError(
+                f"{what}: {res.hop_cap_hits} trace(s) truncated at "
+                f"hop_cap={hop_cap}; raise hop_cap"
+            )
+        if res.branch_cap_hit:
+            raise RuntimeError(
+                f"{what}: unallocated vertices remain at "
+                f"max_branches={max_branches}; raise max_branches"
+            )
+    path_branch, path_pos = torch.stack([res.path_branch, res.path_pos]).cpu().numpy()
+    pts = host_pts if host_pts is not None else medial_pts.cpu().numpy()
+    rad = (host_radii if host_radii is not None else radii.cpu().numpy()).reshape(-1)
+    runs = _branch_vertex_runs(path_branch, path_pos, res.branch_count)
+    return runs, res.branch_parents, pts, rad
+
+
+def sample_tree(medial_pts, medial_radii, preds, distances, component_mask,
+                hop_cap: int = 2048, max_branches: int = 4096, strict: bool = True,
+                host_pts: np.ndarray | None = None, host_radii: np.ndarray | None = None,
+                device=None) -> Dict[int, BranchSkeleton]:
+    """Host wrapper for one tree: run the greedy loop on `device` (the card
+    unless another is named; numpy or tensor inputs), pull once, assemble
+    {branch id: BranchSkeleton}.
+
+    strict=True raises when either cap truncated real work; strict=False
+    keeps the truncated result. `host_pts` / `host_radii`: numpy copies of
+    the points and radii where the caller already holds them."""
+    dev = resolve_device(device)
+    medial_pts = torch.as_tensor(medial_pts, dtype=torch.float32, device=dev)
+    radii = torch.as_tensor(medial_radii, dtype=torch.float32, device=dev).reshape(-1)
+    runs, parents, pts, rad = _traced(
+        "sample_tree", medial_pts, radii,
+        torch.as_tensor(preds, dtype=torch.int64, device=dev),
+        torch.as_tensor(distances, dtype=torch.float32, device=dev),
+        torch.as_tensor(component_mask, dtype=torch.bool, device=dev),
+        hop_cap, max_branches, strict, host_pts, host_radii)
+    return {b: BranchSkeleton(b, int(parents[b]), pts[v], rad[v].reshape(-1, 1))
+            for b, v in runs}
+
+
 def sample_forest(medial_pts, medial_radii, preds, distances, component_mask,
                   labels_np: np.ndarray, hop_cap: int = 2048,
                   max_branches: int = 4096, strict: bool = True,
@@ -229,38 +292,20 @@ def sample_forest(medial_pts, medial_radii, preds, distances, component_mask,
     within a component; parents own termination vertices, also
     same-component. Per-component ids are assigned by extraction order.
 
-    strict=True raises when either cap truncated real work; strict=False
-    keeps the truncated result. `host_pts` / `host_radii`: numpy copies of
-    the points and radii where the caller already holds them.
+    strict, host_pts and host_radii as for `sample_tree`.
 
     Returns {component label: {branch id: BranchSkeleton}}.
     """
     radii = medial_radii.reshape(-1)
-    res = sample_tree_device(medial_pts, radii, preds, distances, component_mask,
-                             hop_cap, max_branches)
-    if stats is not None:
-        stats["branches"] = res.branch_count
-    if strict:
-        if res.hop_cap_hits:
-            raise RuntimeError(
-                f"sample_forest: {res.hop_cap_hits} trace(s) truncated at "
-                f"hop_cap={hop_cap}; raise hop_cap"
-            )
-        if res.branch_cap_hit:
-            raise RuntimeError(
-                f"sample_forest: unallocated vertices remain at "
-                f"max_branches={max_branches}; raise max_branches"
-            )
-    path_branch, path_pos = torch.stack([res.path_branch, res.path_pos]).cpu().numpy()
-    parents, count = res.branch_parents, res.branch_count
-    pts = host_pts if host_pts is not None else medial_pts.cpu().numpy()
-    rad = (host_radii if host_radii is not None else radii.cpu().numpy()).reshape(-1)
+    runs, parents, pts, rad = _traced(
+        "sample_forest", medial_pts, radii, preds, distances, component_mask, hop_cap,
+        max_branches, strict, host_pts, host_radii, stats)
 
     # split by component and renumber by extraction order (global branch
     # ids are monotone in extraction order)
     out: Dict[int, Dict[int, BranchSkeleton]] = {}
     local_id: Dict[int, int] = {}
-    for b, v in _branch_vertex_runs(path_branch, path_pos, count):
+    for b, v in runs:
         comp_branches = out.setdefault(int(labels_np[v[0]]), {})
         lb = len(comp_branches)
         local_id[b] = lb

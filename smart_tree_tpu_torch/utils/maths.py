@@ -19,6 +19,23 @@ def euler_angles_to_rotation(xyz) -> np.ndarray:
     return rz @ ry @ rx
 
 
+def rotation_matrix_from_vectors(vec1, vec2) -> np.ndarray:
+    """The rotation taking the direction of vec1 to that of vec2 (Rodrigues).
+    For antiparallel vectors it returns -I, a reflection, as the JAX package
+    does."""
+    a = np.asarray(vec1, np.float64).reshape(3)
+    b = np.asarray(vec2, np.float64).reshape(3)
+    a = a / np.linalg.norm(a)
+    b = b / np.linalg.norm(b)
+    v = np.cross(a, b)
+    c = float(np.dot(a, b))
+    s = float(np.linalg.norm(v))
+    if s < 1e-12:
+        return np.eye(3) if c > 0 else -np.eye(3)
+    kmat = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+    return np.eye(3) + kmat + kmat @ kmat * ((1 - c) / (s**2))
+
+
 def cube_filter(points, center, cube_size) -> np.ndarray:
     """AABB mask: center +- cube_size/2, half-open [min, max)."""
     points = np.asarray(points)

@@ -297,3 +297,37 @@ def test_two_replicas_on_one_card_match_one(cuda, medial):
 
     assert len(one) > 1000
     np.testing.assert_array_equal(rows(two), rows(one))
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_z9_conv_on_the_card_matches_the_cpu_and_takes_no_kernel(cuda, precision):
+    """The z-window subm conv on the card equals the full rulebook's route 3
+    there (bit for bit: the window rows are the full rulebook) and the CPU's
+    (fp32 summation order); the slab kernel is never launched for it."""
+    from smart_tree_tpu_torch.core import sparse_ops
+    from smart_tree_tpu_torch.core.rulebook import subm_rulebook, subm_rulebook9
+    from smart_tree_tpu_torch.core.sparse_ops import ConvConfig, gather_conv
+
+    rng = np.random.default_rng(9)
+    coords = np.unique(np.concatenate([np.zeros((20000, 1)),
+                                       rng.integers(0, 96, size=(20000, 3))],
+                                      axis=1).astype(np.int32), axis=0)
+    cap = 1 << 15
+    coords = np.concatenate([coords, np.full((cap - len(coords), 4), -1, np.int32)])
+    feats = torch.from_numpy(rng.normal(size=(cap, 16)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(27, 16, 32)) / np.sqrt(27 * 16)).astype(np.float32))
+    cfg = ConvConfig(precision, cap_hint=0)
+    out = {}
+    for dev in ("cpu", cuda):
+        x = SparseVoxelTensor.from_coords(torch.from_numpy(coords).to(dev), feats.to(dev),
+                                          (96,) * 3, 1,
+                                          valid=torch.from_numpy(coords[:, 0] >= 0).to(dev))
+        rb9 = subm_rulebook9(x.keys, x.spatial_shape, 1)
+        slab_conv.slab_gather_conv.launches = 0
+        got = gather_conv(x.feats, rb9, w.to(dev), cfg)
+        assert slab_conv.slab_gather_conv.launches == 0
+        full = sparse_ops._gather_gemm(x.feats, subm_rulebook(x.keys, x.spatial_shape, 1, 3),
+                                       w.to(dev), cfg, False)
+        assert torch.equal(got, full)
+        out[str(dev)] = got.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)

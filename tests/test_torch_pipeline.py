@@ -271,13 +271,20 @@ def test_cli_directory_and_usage(raw_cloud, tmp_path, capsys, monkeypatch):
     assert rc == 0 and seen == ["a.npz", "b.npz"]
 
 
-def test_views_are_not_ported(tmp_path):
+def test_views_warn_and_return_without_open3d(tmp_path, caplog):
+    """Without open3d the views log the JAX package's warning and return, as
+    its pipeline does (so a configuration with view_skeletons: True runs)."""
+    from smart_tree_tpu_torch.viz import viewer
+
+    assert not viewer.HAVE_O3D
     cfg = dict(_cpu_config(tmp_path), model_inference=None, view_skeletons=True)
     pipeline = configs.instantiate(cfg)
-    with pytest.raises(NotImplementedError, match="viewer"):
-        pipeline._view_skeleton(None, None)
-    with pytest.raises(NotImplementedError, match="viewer"):
-        pipeline._view_cloud(None)
+    with caplog.at_level("WARNING", logger=viewer.__name__):
+        assert pipeline._view_skeleton(None, None) is None
+        assert pipeline._view_cloud(None) is None
+    assert [r.getMessage() for r in caplog.records] == [
+        "open3d not available; skipping interactive view (use save_outputs: True for PLY "
+        "export)"] * 2
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, raw_cloud, tmp_path):
