@@ -91,12 +91,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      counts, view_skeleton returning after its warning, and split_data plus
      one bench_dataloader epoch on phase 11's corpus (run while the corpus
      exists, at the end of phase 13); a `{"remaining_modules": ...}` line.
+ 17. the user tools (smart_tree_tpu_torch/tools/) through their entry
+     points: (a) make_synthetic_dataset --per-family 1 at its default
+     densities into a temporary directory, every file loaded and voxelised by
+     the trainer's TreeDataset; (b) convert_checkpoint on the shipped
+     noble-elevator-58 written as a reference .pt: the npz it writes equals
+     the shipped one; (c) evaluate_tree with synthetic-r3 on seeds 100, 102
+     and 103 at fp32 and at bf16 (every metric finite, a skeleton found, the
+     slab kernel launched in the bf16 runs; seed 100 at fp32 equal to the
+     CPU port's within the tests' 1e-4 and branch count), printed beside
+     BASELINE.md's JAX CPU fp32 values, and noble-elevator-58 on seed 100 at
+     both precisions; diagnose_direction (seed 100) and diagnose_e2e
+     (synthetic-r2) on the card; (d) the forest scan at bench_scan's
+     defaults (6 trees, 8,000 points/m^2, bf16, batch ceiling 131,072) with
+     the skeleton stage: one warm-up and one timed forward, the slab kernel
+     launched, finite outputs, at least one skeleton and 6 branches, every
+     skeleton point inside the scan's bounds +-1 m; stage seconds, graph
+     vertices, KNN route and peak memory; a `{"tools": ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
-parallel phase's and the last modules' numbers, and as the last line
-{"ok": true, "device": {...}}.
+parallel phase's, the last modules' and the tools' numbers, and as the last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -162,6 +179,30 @@ FP32_UNIT = 2.0 ** -24
 # stay within twice that spread of the slab-kernel forward, plus the model
 # tolerance's atol, and agree on as many classes less 0.1 %
 Z9_SPREAD_FACTOR = 2.0
+# phase 17: the user tools. The held-out trees of tools/evaluate.py (seeds 100,
+# 102, 103 at its defaults) with synthetic-r3, whose JAX CPU fp32 values
+# BASELINE.md records (medial reduction on, the default filter radius); the
+# card's numbers are printed beside them, not gated on them
+R3_WEIGHTS = REPO / "smart_tree_tpu" / "weights" / "synthetic-r3.npz"
+R2_WEIGHTS = REPO / "smart_tree_tpu" / "weights" / "synthetic-r2.npz"
+EVAL_SEEDS = (100, 102, 103)
+BASELINE_R3 = {
+    100: dict(iou_branch=0.9919, iou_foliage=0.9399, radius_mae=0.0040, direction_cos=0.7625,
+              precision_dist=0.0597, n_branches=91),
+    102: dict(iou_branch=0.9903, iou_foliage=0.9315, radius_mae=0.0039, direction_cos=0.8466,
+              precision_dist=0.0573, n_branches=54),
+    103: dict(iou_branch=0.9891, iou_foliage=0.9178, radius_mae=0.0043, direction_cos=0.7272,
+              precision_dist=0.0578, n_branches=103),
+}
+# tests/test_torch_tools_eval.py's tolerance: one step of the tools' round(x, 4)
+EVAL_ATOL = 1e-4 + 1e-9
+EVAL_TIMING = ("inference_s", "points_per_s", "skeletonize_s")
+# tools/bench_scan.py's defaults: six trees at 8,000 points/m^2
+FOREST_TREES = 6
+FOREST_POINTS_PER_M2 = 8000.0
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -848,6 +889,197 @@ def corpus_scripts(work: Path) -> dict:
     return result
 
 
+def reference_pt(torch, npz: Path, path: Path) -> Path:
+    """The checkpoint `npz` as the reference's spconv state_dict at `path`:
+    module paths joined with dots, BatchNorm weight / bias / running_mean /
+    running_var and num_batches_tracked, conv kernels (Cout, kx, ky, kz, Cin)."""
+    from smart_tree_tpu_torch.nn.convert import (flax_path, load_npz, model_from_variables,
+                                                 torch_key_for)
+
+    sd = load_npz(npz)
+    buffers = {name for name, _ in model_from_variables(sd).named_buffers()}
+    out = {}
+    for key, v in sd.items():
+        collection = "batch_stats" if key in buffers else "params"
+        if v.ndim == 3:                 # [K3, Cin, Cout] -> (Cout, k, k, k, Cin)
+            k = round(v.shape[0] ** (1 / 3))
+            v = v.reshape(k, k, k, v.shape[1], v.shape[2]).permute(4, 0, 1, 2, 3)
+        out[torch_key_for(flax_path(key), collection)] = v.contiguous()
+        if key.endswith(".mean"):
+            out[key[: -len("mean")] + "num_batches_tracked"] = torch.tensor(7)
+    torch.save(out, path)
+    return path
+
+
+def captured_json(fn) -> list:
+    """Run fn() with its standard output captured; the JSON values it printed,
+    one a line, or one indented value."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if fn() != 0:
+            raise AssertionError(f"{fn} returned non-zero")
+    text = buf.getvalue().strip()
+    try:
+        return [json.loads(text)]
+    except json.JSONDecodeError:
+        return [json.loads(line) for line in text.splitlines()]
+
+
+def tools_phase(torch, np, card):
+    """Phase 17: the port's user tools (smart_tree_tpu_torch/tools/) on the
+    card, through their entry points. Returns (the `tools` line, the slab
+    kernel's launches in the bf16 evaluations, in the forest scan)."""
+    import contextlib
+
+    from smart_tree_tpu_torch.core import slab_conv
+    from smart_tree_tpu_torch.data.dataset import BlockTiler, TreeDataset
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.tools import (bench_scan, convert_checkpoint, diagnose_direction,
+                                            diagnose_e2e, evaluate, make_synthetic_dataset)
+
+    t_phase = time.perf_counter()
+    result = {"card": card}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        # (a) a dataset at the tool's default densities, loaded by the trainer's dataset
+        t0 = time.perf_counter()
+        data = work / "trees"
+        with contextlib.redirect_stdout(sys.stderr):   # its log lines, off the result lines
+            code = make_synthetic_dataset.main([str(data), "--per-family", "1"])
+        if code != 0:
+            raise AssertionError("make_synthetic_dataset returned non-zero")
+        split = json.loads((data / "split.json").read_text())
+        files = sorted(p.name for p in data.glob("*.npz"))
+        if len(files) != 6 or sorted(sum(split.values(), [])) != files:
+            raise AssertionError(f"make_synthetic_dataset wrote {files}, split {split}")
+        voxels = {}
+        for mode, names in split.items():
+            if not names:
+                continue
+            ds = TreeDataset(0.01, data / "split.json", data, mode, ["xyz"],
+                             ["radius", "direction", "class_l"])
+            for i in range(len(ds)):
+                coords, inputs, targets, name, _ = ds.item(i)
+                if not (len(coords) > 0 and np.isfinite(inputs).all()
+                        and np.isfinite(targets).all()):
+                    raise AssertionError(f"dataset item {name} is empty or not finite")
+                voxels[name] = len(coords)
+        result["dataset"] = {"split_sizes": {k: len(v) for k, v in split.items()},
+                             "voxels": voxels, "seconds": time.perf_counter() - t0}
+        log(f"make_synthetic_dataset: {result['dataset']}")
+
+        # (b) the checkpoint converter: the shipped npz as a reference .pt, and back
+        t0 = time.perf_counter()
+        pt = reference_pt(torch, WEIGHTS, work / "noble-elevator-58.pt")
+        back = work / "converted.npz"
+        with contextlib.redirect_stdout(sys.stderr):
+            code = convert_checkpoint.main([str(pt), str(back)])
+        if code != 0:
+            raise AssertionError("convert_checkpoint returned non-zero")
+        with np.load(back) as a, np.load(WEIGHTS) as b:
+            if sorted(a.files) != sorted(b.files):
+                raise AssertionError("convert_checkpoint: other entries than the shipped npz")
+            for k in a.files:
+                if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"convert_checkpoint: {k} differs from the shipped npz")
+            result["convert"] = {"arrays": len(a.files), "seconds": time.perf_counter() - t0}
+        log(f"convert_checkpoint: {result['convert']}")
+
+    # (c) quality: evaluate_tree on the held-out seeds at fp32 and bf16
+    def quality(weights, seeds):
+        out, launches = {}, {}
+        for precision in ("float32", "bfloat16"):
+            mi = ModelInference(weights, precision=precision)
+            for seed in seeds:
+                slab_conv.slab_gather_conv.launches = 0
+                m = evaluate.evaluate_tree(mi, seed)
+                if precision == "bfloat16":
+                    launches[seed] = slab_conv.slab_gather_conv.launches
+                bad = [k for k, v in m.items() if not np.isfinite(v)]
+                if bad or "n_branches" not in m:
+                    raise AssertionError(f"evaluate_tree {weights.name} seed {seed} "
+                                         f"{precision}: no skeleton or non-finite {bad}: {m}")
+                out.setdefault(seed, {})[precision] = m
+        return out, launches
+
+    t0 = time.perf_counter()
+    r3, r3_launches = quality(R3_WEIGHTS, EVAL_SEEDS)
+    if sum(r3_launches.values()) == 0:
+        raise AssertionError(f"the bf16 evaluations never launched the slab kernel: {r3_launches}")
+    for seed in EVAL_SEEDS:
+        r3[seed]["jax_cpu_fp32_baseline"] = BASELINE_R3[seed]
+    cpu = evaluate.evaluate_tree(ModelInference(R3_WEIGHTS, device="cpu"), EVAL_SEEDS[0])
+    card32 = r3[EVAL_SEEDS[0]]["float32"]
+    off = {k: (card32.get(k), v) for k, v in cpu.items() if k not in EVAL_TIMING and not (
+        k in card32 and abs(card32[k] - v) <= (0 if isinstance(v, int) else EVAL_ATOL))}
+    r3[EVAL_SEEDS[0]]["cpu_float32"] = cpu
+    noble, noble_launches = quality(WEIGHTS, EVAL_SEEDS[:1])
+    log("evaluate (synthetic-r3; card fp32 / card bf16 / JAX CPU fp32, BASELINE.md):")
+    for seed in EVAL_SEEDS:
+        for key in BASELINE_R3[seed]:
+            log(f"  seed {seed} {key}: {r3[seed]['float32'].get(key)} / "
+                f"{r3[seed]['bfloat16'].get(key)} / {BASELINE_R3[seed][key]}")
+    result["evaluate"] = {
+        "synthetic-r3": r3, "noble-elevator-58": noble,
+        "bf16_slab_launches": {"synthetic-r3": r3_launches, "noble-elevator-58": noble_launches},
+        "seconds": time.perf_counter() - t0,
+    }
+    # a disagreement fails the phase at its end, after the other tools have run
+    problems = [f"evaluate_tree seed {EVAL_SEEDS[0]} fp32, card against the CPU past "
+                f"{EVAL_ATOL}: {off}"] if off else []
+
+    # the two diagnostics through their entry points, on the card
+    t0 = time.perf_counter()
+    result["diagnose_direction"] = captured_json(
+        lambda: diagnose_direction.main([str(R3_WEIGHTS), "--seed", str(EVAL_SEEDS[0])]))[0]
+    e2e = captured_json(lambda: diagnose_e2e.main([str(R2_WEIGHTS)]))
+    if [line["stage"] for line in e2e] != ["model", "predicted", "oracle"]:
+        raise AssertionError(f"diagnose_e2e printed {e2e}")
+    result["diagnose_e2e"] = e2e
+    result["diagnose_s"] = time.perf_counter() - t0
+    log(f"diagnostics: {result['diagnose_direction']} {e2e}")
+
+    # (d) the forest scan at bench_scan's defaults, with the skeleton stage
+    t0 = time.perf_counter()
+    cloud = bench_scan.make_forest(FOREST_TREES, FOREST_POINTS_PER_M2)
+    make_s = time.perf_counter() - t0
+    log(f"forest: {len(cloud)} points in {make_s:.1f} s")
+    # the host tiling alone (one of the forward's layers), as the forward tiles
+    t0 = time.perf_counter()
+    tiler = BlockTiler(cloud, 0.01, 4.0, 0.4)
+    n_batches = sum(1 for _ in tiler.batches(4, max_capacity=bench_scan.MAX_BATCH_CAPACITY))
+    tiling = {"blocks": len(tiler), "batches": n_batches, "seconds": time.perf_counter() - t0}
+    del tiler
+    slab_conv.slab_gather_conv.launches = 0
+    report, lc, skel = bench_scan.scan(cloud, FOREST_TREES, skeletonize=True)
+    forest_launches = slab_conv.slab_gather_conv.launches
+    if forest_launches == 0:
+        raise AssertionError("the forest scan never launched the slab kernel")
+    for k in ("xyz", "medial_vector", "class_l"):
+        if not np.isfinite(getattr(lc, k)).all():
+            raise AssertionError(f"forest scan: non-finite {k}")
+    branches = sum(len(s.branches) for s in skel.skeletons)
+    if len(skel.skeletons) < 1 or branches < FOREST_TREES:
+        raise AssertionError(f"forest scan: {len(skel.skeletons)} skeletons, {branches} branches")
+    pts = np.concatenate([b.xyz for s in skel.skeletons for b in s.branches.values()])
+    lo, hi = cloud.xyz.min(0) - 1.0, cloud.xyz.max(0) + 1.0
+    if not ((pts >= lo) & (pts <= hi)).all():
+        raise AssertionError("forest scan: a skeleton point outside the scan bounds +-1 m")
+    report.update(make_forest_s=make_s, host_tiling=tiling, extent_m=(cloud.xyz.max(0) - cloud.xyz.min(0)).tolist(),
+                  output_voxels=len(lc), slab_launches=forest_launches,
+                  skeletons_per_component=[len(s.branches) for s in skel.skeletons])
+    result["forest_scan"] = report
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["script_s"] = time.perf_counter() - T_START
+    log(f"forest scan: {report}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return result, sum(r3_launches.values()), forest_launches
+
+
 def main() -> int:
     import torch
 
@@ -1416,6 +1648,9 @@ def main() -> int:
     remaining = remaining_phase(torch, np, mi16, batches, out16, skeleton, expected, on_cpu,
                                 scripts16, card)
 
+    # 17. the user tools
+    tools, eval_launches, forest_launches = tools_phase(torch, np, card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1445,6 +1680,8 @@ def main() -> int:
               launches_per_culled_forward=transfers["modes"]["culled"]["slab_launches"],
               launches_per_multi_device_forward=multi_launches,
               launches_per_z9_bf16_forward=remaining["z9"]["slab_launches_per_bf16_forward"]["z9"],
+              launches_in_bf16_evaluations=eval_launches,
+              launches_in_forest_scan=forest_launches,
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -1476,6 +1713,7 @@ def main() -> int:
     print(json.dumps({"transfers": transfers}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"remaining_modules": remaining}), flush=True)
+    print(json.dumps({"tools": tools}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
