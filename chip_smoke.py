@@ -108,12 +108,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      launched, finite outputs, at least one skeleton and 6 branches, every
      skeleton point inside the scan's bounds +-1 m; stage seconds, graph
      vertices, KNN route and peak memory; a `{"tools": ...}` line.
+ 18. the training probes (smart_tree_tpu_torch/tools/{overfit_probe,
+     cpu_probe}.py) at the JAX tools' defaults, logged every 25 steps: (a)
+     the overfit probe on its seed-0 tree (capacity 65,536, planes
+     8/16/32/64, xyz features, cosine loss) for 400 steps at lr 0.05 and at
+     lr 0.01, and for 200 at lr 0.01 with --fp16; (b) cpu_probe for 400
+     steps with --aug full, then --aug none; (c) the first 3 steps of (a)
+     at lr 0.01 and of (b) full again on the CPU from the same seeded
+     weights: step 0 within rtol 1e-4, steps 1-2 within 2e-2; (d) no launch of either hand kernel in the card's probe steps;
+     (e) every loss finite, and the lr 0.01 fp32 direction loss at the last
+     step below its step-0 value (lr 0.05 and bf16 are reported, not held);
+     (f) per run the logged curve, the median seconds a step after 5
+     warm-up steps, peak device bytes and seconds; a `{"probes": ...}` line,
+     printed before a failed check fails the script.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
-parallel phase's, the last modules' and the tools' numbers, and as the last
-line {"ok": true, "device": {...}}.
+parallel phase's, the last modules', the tools' and the probes' numbers, and
+as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -200,6 +213,26 @@ EVAL_TIMING = ("inference_s", "points_per_s", "skeletonize_s")
 # tools/bench_scan.py's defaults: six trees at 8,000 points/m^2
 FOREST_TREES = 6
 FOREST_POINTS_PER_M2 = 8000.0
+# phase 18: the training probes at the JAX tools' defaults, 400 steps each
+# but the bf16 run, cut to 200 to hold the phase near its 150 s budget (the
+# fp32 runs keep the tools' 400; cpu_probe's `none` run leaves its plateau
+# only after some 175 steps). Card against CPU on the first steps: step 0,
+# before any update, to fp32 summation order; steps 1 and 2 to the
+# five-Adam-step tolerance of tests/test_torch_train_step.py
+PROBE_LOG_EVERY = 25
+PROBE_RUNS = (   # (name, tool, steps, settings)
+    ("overfit_lr0.05", "overfit_probe", 400, dict(lr=0.05)),
+    ("overfit_lr0.01", "overfit_probe", 400, dict(lr=0.01)),
+    ("overfit_lr0.01_bf16", "overfit_probe", 200, dict(lr=0.01, fp16=True)),
+    ("cpu_probe_full", "cpu_probe", 400, dict(aug="full")),
+    ("cpu_probe_none", "cpu_probe", 400, dict(aug="none")),
+)
+PROBE_ON_CPU = ("overfit_lr0.01", "cpu_probe_full")
+PROBE_CHECK_STEPS = 3
+PROBE_FIRST_RTOL = 1e-4
+PROBE_RTOL = 2e-2
+PROBE_WARMUP_STEPS = 5
+PROBE_LOSSES = ("radius", "direction", "class_l")
 
 
 T_START = time.perf_counter()
@@ -1080,6 +1113,85 @@ def tools_phase(torch, np, card):
     return result, sum(r3_launches.values()), forest_launches
 
 
+def probes_phase(torch, np, card):
+    """Phase 18: the training probes (smart_tree_tpu_torch/tools/
+    {overfit_probe,cpu_probe}.py) on the card, PROBE_RUNS, the first steps of two of them again on the CPU. Returns (the `probes`
+    line, each hand kernel's launches in the card's probe steps, the checks
+    that failed), so that the caller prints the line before it fails."""
+    from smart_tree_tpu_torch.core import fused_conv, slab_conv
+    from smart_tree_tpu_torch.tools import cpu_probe, overfit_probe
+
+    tools = {"overfit_probe": overfit_probe, "cpu_probe": cpu_probe}
+    t_phase = time.perf_counter()
+    result = {"card": card}
+    problems, card_runs = [], {}
+    slab_conv.slab_gather_conv.launches = 0
+    fused_conv.fused_gather_gemm.launches = 0
+    for name, tool, steps, settings in PROBE_RUNS:
+        lines = []
+
+        def echo(s, name=name, lines=lines):
+            lines.append(s)
+            log(f"{name}: {s}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recs = tools[tool].run(steps=steps, log_every=PROBE_LOG_EVERY, echo=echo, **settings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # each step's seconds end with its losses fetched, which waits for the card
+        step_s = np.diff([0.0] + [r["seconds"] for r in recs])
+        bad = [r["step"] for r in recs if not all(np.isfinite(r[k]) for k in PROBE_LOSSES)]
+        if bad:
+            problems.append(f"{name}: non-finite losses at steps {bad[:10]}")
+        card_runs[name] = recs
+        result[name] = {
+            "tool": tool, "steps": steps, "settings": settings,
+            "curve": [r for r in recs if overfit_probe.logged(r["step"], steps,
+                                                              PROBE_LOG_EVERY)],
+            "median_step_s": float(np.median(step_s[PROBE_WARMUP_STEPS:])),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": seconds,
+        }
+        if tool == "overfit_probe":
+            result[name]["tree"] = lines[0]
+    launches = {"slab_gather_conv": slab_conv.slab_gather_conv.launches,
+                "fused_gather_gemm": fused_conv.fused_gather_gemm.launches}
+    if any(launches.values()):
+        problems.append(f"a forward-only hand kernel launched in the probe steps: {launches}")
+
+    # the first steps again on the CPU, from the same seeded weights
+    for name, tool, _, settings in PROBE_RUNS:
+        if name not in PROBE_ON_CPU:
+            continue
+        t0 = time.perf_counter()
+        cpu = tools[tool].run(steps=PROBE_CHECK_STEPS, device="cpu", **settings)
+        rel = []
+        for got, ref in zip(card_runs[name], cpu):
+            rtol = PROBE_FIRST_RTOL if ref["step"] == 0 else PROBE_RTOL
+            rel.append(max(abs(got[k] - ref[k]) / abs(ref[k]) for k in PROBE_LOSSES))
+            off = {k: (got[k], ref[k]) for k in PROBE_LOSSES
+                   if not abs(got[k] - ref[k]) <= rtol * abs(ref[k])}
+            if off:
+                problems.append(f"{name} step {ref['step']}, card against CPU past rtol "
+                                f"{rtol}: {off}")
+        result[name]["cpu_first_steps"] = cpu
+        result[name]["cpu_max_rel_diff_by_step"] = rel
+        result[name]["cpu_s"] = time.perf_counter() - t0
+
+    # what STATUS.md records for lr 0.01: the direction loss comes down
+    run = card_runs["overfit_lr0.01"]
+    if not run[-1]["direction"] < run[0]["direction"]:
+        problems.append(f"overfit lr 0.01: direction loss {run[0]['direction']} at step 0, "
+                        f"{run[-1]['direction']} at step {run[-1]['step']}")
+    result["launches"] = launches
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["script_s"] = time.perf_counter() - T_START
+    log(f"probes: {launches}, phase {result['phase_s']:.1f} s, problems {problems}")
+    return result, launches, problems
+
+
 def main() -> int:
     import torch
 
@@ -1651,6 +1763,9 @@ def main() -> int:
     # 17. the user tools
     tools, eval_launches, forest_launches = tools_phase(torch, np, card)
 
+    # 18. the training probes; a failed check fails the script after its line
+    probes, probe_launches, probe_problems = probes_phase(torch, np, card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1682,6 +1797,7 @@ def main() -> int:
               launches_per_z9_bf16_forward=remaining["z9"]["slab_launches_per_bf16_forward"]["z9"],
               launches_in_bf16_evaluations=eval_launches,
               launches_in_forest_scan=forest_launches,
+              launches_in_probes=probe_launches["slab_gather_conv"],
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -1690,6 +1806,7 @@ def main() -> int:
               replaces="smart_tree_tpu/core/pallas_ops.py:86",
               launches=fused_launches, launches_per_forward=fused_per_forward,
               launches_per_culled_fused_forward=culled_launches["fused_launches"],
+              launches_in_probes=probe_launches["fused_gather_gemm"],
               forward_kernel_ms=fused_forward_ms),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
@@ -1714,6 +1831,9 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"remaining_modules": remaining}), flush=True)
     print(json.dumps({"tools": tools}), flush=True)
+    print(json.dumps({"probes": probes}), flush=True)
+    if probe_problems:
+        raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -8,6 +8,8 @@ tool of the same file name under `tools/`, and imports no JAX.
   diagnose_direction      tools/diagnose_direction.py      `--device`
   diagnose_e2e            tools/diagnose_e2e.py            `--device`
   bench_scan              tools/bench_scan.py              `--device`
+  overfit_probe           tools/overfit_probe.py           `--device`
+  cpu_probe               tools/cpu_probe.py               `--device` (the card by default)
 
 The tools with `--device` run on the card unless it names another device,
 and raise without a card; the two host tools touch no device.
