@@ -39,7 +39,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the card against the CPU;
  10. grid KNN: on the bench tree's reduced medial points (K = 16, r = the
      largest connection radius) `grid_knn` against the brute-force `knn`,
-     both on the card and both timed; then `nn_graph` on more than 400,000
+     both on the card and both timed; both on 4,096 seeded query rows
+     against a float64 host recompute of their pairs (`exact_knn`, the
+     bound of tests/test_torch_knn_exact.py); then `nn_graph` on more than 400,000
      vertices (those points replicated at offsets, with a seeded jitter),
      which takes the grid route;
  11. training at full width: a synthetic corpus into a temporary directory,
@@ -107,7 +109,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the skeleton stage: one warm-up and one timed forward, the slab kernel
      launched, finite outputs, at least one skeleton and 6 branches, every
      skeleton point inside the scan's bounds +-1 m; stage seconds, graph
-     vertices, KNN route and peak memory; a `{"tools": ...}` line.
+     vertices, KNN route and peak memory; `knn` and `grid_knn` on the
+     forest's reduced medial points held against float64 as in phase 10;
+     a `{"tools": ...}` line.
  18. the training probes (smart_tree_tpu_torch/tools/{overfit_probe,
      cpu_probe}.py) at the JAX tools' defaults, logged every 25 steps: (a)
      the overfit probe on its seed-0 tree (capacity 65,536, planes
@@ -164,6 +168,15 @@ PIPELINE_LENGTH_RTOL = 1e-2
 # points first, which rounds each coordinate once more)
 GRID_RTOL = 1e-6
 GRID_COORD_ULPS = 4 * 1.2e-7
+# knn and grid_knn against a float64 host recompute of the pairs they return,
+# on a seeded sample of query rows (tests/test_torch_knn_exact.py's bound): 2
+# fp32 ulps of the distance, plus for the centred brute force 2 ulps of the
+# largest coordinate
+EXACT_ROWS = 4096
+EXACT_RTOL = 2.4e-7
+# the forest's check runs at a fixed 10 cm radius: the skeleton stage's own
+# (its largest predicted radius) would only make the grid's cells crowded
+FOREST_EXACT_R = 0.1
 # the training corpus: trees of the bench tree's family, smaller. An epoch
 # draws TRAIN_PASSES differently augmented 4 m crops of every train tree (the
 # split lists each that often), so that three epochs are some forty steps: the
@@ -240,6 +253,37 @@ T_START = time.perf_counter()
 
 def log(msg: str) -> None:
     print(f"# {time.strftime('%H:%M:%S')} {msg}", file=sys.stderr, flush=True)
+
+
+def exact_knn(torch, np, pts, k: int, r: float, seed: int) -> dict:
+    """knn and grid_knn on the card for EXACT_ROWS query rows of `pts` (drawn
+    from a seed) against all of `pts`, each distance held against the float64
+    recompute of its pair on the host. Returns each function's largest
+    relative error, worst error over the bound and the seconds taken;
+    raises on a breach."""
+    from smart_tree_tpu_torch.neighbors import grid_knn, knn
+
+    t0 = time.perf_counter()
+    rows = torch.randperm(pts.shape[0], generator=torch.Generator().manual_seed(seed))
+    q = pts[rows[:EXACT_ROWS].to(pts.device)]
+    coord_ulps = 2 * float(np.spacing(np.float32(float(pts.abs().max()))))
+    out = {"rows": int(q.shape[0]), "k": k, "r": r, "coord_ulps_m": coord_ulps}
+    for name, fn, atol in (("knn", knn, coord_ulps), ("grid_knn", grid_knn, 0.0)):
+        d, i = fn(q, pts, k, r)
+        hit = (i >= 0).cpu().numpy()
+        dst = pts[i.clamp_min(0)].double().cpu().numpy()
+        diff = q.double().cpu().numpy()[:, None, :] - dst
+        exact = np.sqrt((diff * diff).sum(-1))[hit]
+        err = np.abs(d.cpu().numpy()[hit] - exact)
+        bound = EXACT_RTOL * exact + atol   # 0 for a point and itself in the grid
+        over = float(np.where(err == 0, 0.0, err / np.maximum(bound, 1e-300)).max(initial=0.0))
+        pos = exact > 0
+        out[name] = {"pairs": int(hit.sum()), "worst_over_bound": over,
+                     "max_rel_err": float((err[pos] / exact[pos]).max()) if pos.any() else 0.0}
+        if not hit.any() or over > 1:
+            raise AssertionError(f"{name}: distances off the float64 recompute, {out[name]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def cuda_time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1101,6 +1145,21 @@ def tools_phase(torch, np, card):
     lo, hi = cloud.xyz.min(0) - 1.0, cloud.xyz.max(0) + 1.0
     if not ((pts >= lo) & (pts <= hi)).all():
         raise AssertionError("forest scan: a skeleton point outside the scan bounds +-1 m")
+    # the forest's graph vertices as the skeleton stage reduces them (one
+    # medial point per 1 cm cell), trees up to some 30 m from the origin
+    from smart_tree_tpu_torch.skeleton.quantize import medial_reduce
+
+    branch = lc.filter_by_class([0])
+    fp, fy = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+              for a in (branch.medial_pts, branch.xyz[:, 1]))
+    rep, _ = medial_reduce(fp, fy, torch.ones(fp.shape[0], dtype=torch.bool, device=fp.device),
+                           0.01)
+    report["exact"] = exact_knn(torch, np, fp[rep], 16, FOREST_EXACT_R, seed=17)
+    log(f"forest knn / grid_knn against float64: largest relative error "
+        f"{report['exact']['knn']['max_rel_err']:.3g} / "
+        f"{report['exact']['grid_knn']['max_rel_err']:.3g}, {report['exact']['seconds']:.2f} s "
+        f"({card})")
+    del fp, fy, rep
     report.update(make_forest_s=make_s, host_tiling=tiling, extent_m=(cloud.xyz.max(0) - cloud.xyz.min(0)).tolist(),
                   output_voxels=len(lc), slab_launches=forest_launches,
                   skeletons_per_component=[len(s.branches) for s in skel.skeletons])
@@ -1598,8 +1657,12 @@ def main() -> int:
     dst_copy = big_graph.edges[:, 1] // mp.shape[0]
     if bool((big_graph.valid & (src_copy != dst_copy)).any()):
         raise AssertionError("nn_graph past the threshold: an edge between two copies")
+    exact10 = exact_knn(torch, np, mp, k, r_max, seed=10)
+    log(f"bench tree knn / grid_knn against float64: largest relative error "
+        f"{exact10['knn']['max_rel_err']:.3g} / {exact10['grid_knn']['max_rel_err']:.3g}, "
+        f"{exact10['seconds']:.2f} s ({card})")
     grid_stats = {
-        "card": card, "vertices": int(mp.shape[0]), "k": k, "r": r_max,
+        "card": card, "vertices": int(mp.shape[0]), "k": k, "r": r_max, "exact": exact10,
         "grid_knn_s": grid_s, "knn_s": brute_s,
         "rows_without_ties": int(clean.sum()), "max_abs_dist_gap": float(gap.max()),
         "big_vertices": int(big.shape[0]), "big_nn_graph_s": big_s,

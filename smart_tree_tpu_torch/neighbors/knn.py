@@ -17,7 +17,9 @@ each candidate is one int64 key, the bits of its (non-negative) squared
 distance above its index, so all keys differ and the smallest `k + 8` keys
 are the nearest candidates with the lowest index first among equals. All
 arithmetic is fp32; the s.d product has K = 3 and must not run in TF32
-(`device.resolve_device` switches it off).
+(`device.resolve_device` switches it off). On the CPU the roots of the
+distances must not be the first parallel call of torch's vector math in the
+process (`device.settle_cpu_math`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, settle_cpu_math
 
 SRC_TILE = 2048
 DST_CHUNK = 16384
@@ -68,6 +70,8 @@ def _tiles(m: int, src_tile, dst_chunk):
 
 
 def _knn_impl(src, dst, src_valid, dst_valid, r2, k: int, src_tile=None, dst_chunk=None):
+    if src.device.type == "cpu":  # the tracer calls in here, past resolve_device
+        settle_cpu_math()
     src, dst, _ = _centre(src, dst, dst_valid)
     n, m = src.shape[0], dst.shape[0]
     src_tile, dst_chunk = _tiles(m, src_tile, dst_chunk)

@@ -3,7 +3,10 @@ smart_tree_tpu.neighbors.knn on the same numpy inputs made from a seed.
 
 Indices must be equal. Distances are held at rtol 1e-6: both sides recompute
 the selected pairs exactly in fp32, but XLA's fused loop and torch round the
-three-term sum of squares differently in the last bit.
+three-term sum of squares differently in the last bit. Before that, each
+side is held on its own against a float64 recompute of the pairs it returned
+(rtol 2.4e-7 plus 2 ulps of the largest valid coordinate, the bound of
+tests/test_torch_knn_exact.py), so a failure names the side that moved.
 """
 
 import importlib
@@ -31,9 +34,25 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _check_knn(got, ref):
+def _hold_exact(side, d, i, src, dst, dst_valid):
+    """`side`'s distances against the float64 recompute of its own pairs."""
+    hit = i >= 0
+    atol = 2.0 * float(np.spacing(np.float32(max(np.abs(src).max(), np.abs(dst[dst_valid]).max()))))
+    diff = src.astype(np.float64)[:, None, :] - dst.astype(np.float64)[np.maximum(i, 0)]
+    exact = np.sqrt((diff * diff).sum(-1))[hit]
+    off = np.abs(d[hit] - exact) / (2.4e-7 * exact + atol)
+    assert (off <= 1).all(), (
+        f"{side} distances are off the float64 recompute of their pairs: {int((off > 1).sum())} "
+        f"of {off.size}, worst {float(off.max()):.3g} x the bound "
+        f"(relative {float((np.abs(d[hit] - exact) / np.maximum(exact, 1e-30)).max()):.3g})")
+
+
+def _check_knn(got, ref, src, dst, dst_valid=None):
     td, ti = (x.numpy() for x in got)
     jd, ji = (np.asarray(x) for x in ref)
+    dv = np.ones(len(dst), bool) if dst_valid is None else dst_valid
+    _hold_exact("the port's (ACTUAL)", td, ti, src, dst, dv)
+    _hold_exact("the JAX reference's (DESIRED)", jd, ji, src, dst, dv)
     np.testing.assert_array_equal(ti, ji)
     hit = ji >= 0
     assert np.isinf(td[~hit]).all()
@@ -52,14 +71,14 @@ def test_knn_matches_jax(k, r, masked, dup):
         dst[~dv] = 1e6  # far padding must not shift the centre
     got = tknn_mod.knn(_t(src), _t(dst), k, r, None if sv is None else _t(sv),
                        None if dv is None else _t(dv))
-    _check_knn(got, jknn_mod.knn(src, dst, k, r, sv, dv))
+    _check_knn(got, jknn_mod.knn(src, dst, k, r, sv, dv), src, dst, dv)
 
 
 @pytest.mark.parametrize("dup", [False, True], ids=["distinct", "duplicated"])
 def test_knn_self_query_matches_jax(dup):
     p = _cloud(5, 800, dup, scale=0.3)
     got = tknn_mod.knn(_t(p), _t(p), 16, 0.1)
-    _check_knn(got, jknn_mod.knn(p, p, 16, 0.1))
+    _check_knn(got, jknn_mod.knn(p, p, 16, 0.1), p, p)
     d, i = got
     if not dup:  # the query itself comes first, at distance 0
         assert (i[:, 0] == torch.arange(800)).all() and (d[:, 0] == 0).all()
@@ -73,7 +92,8 @@ def test_nn_matches_jax():
     d, i = tknn_mod.nn(_t(src), _t(dst), 0.5)
     jd, ji = jknn_mod.nn(src, dst, 0.5)
     assert d.shape == (300,) and i.dtype == torch.int64
-    _check_knn((d[:, None], i[:, None]), (np.asarray(jd)[:, None], np.asarray(ji)[:, None]))
+    _check_knn((d[:, None], i[:, None]), (np.asarray(jd)[:, None], np.asarray(ji)[:, None]),
+               src, dst)
 
 
 @pytest.mark.parametrize("src_tile,dst_chunk", [(64, 128), (100, 37), (4096, 16384)])
@@ -94,7 +114,7 @@ def test_knn_empty_and_short_dst():
     assert d.shape == (10, 4) and torch.isinf(d).all() and (i == -1).all()
     d, i = tknn_mod.knn(_t(src), _t(src[:3]), 8, 1e9)  # fewer dst than k
     assert (i[:, :3] >= 0).all() and (i[:, 3:] == -1).all()
-    _check_knn((d, i), jknn_mod.knn(src, src[:3], 8, 1e9))
+    _check_knn((d, i), jknn_mod.knn(src, src[:3], 8, 1e9), src, src[:3])
 
 
 def _true_counts(src, dst, radii, dv, cap):
