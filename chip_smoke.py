@@ -124,18 +124,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
      step below its step-0 value (lr 0.05 and bf16 are reported, not held);
      (f) per run the logged curve, the median seconds a step after 5
      warm-up steps, peak device bytes and seconds; a `{"probes": ...}` line,
-     printed before a failed check fails the script.
+     printed before a failed check fails the script;
+ 19. the port's bench (smart_tree_tpu_torch/bench.py): (a) `python -m
+     smart_tree_tpu_torch.bench` at its shipped defaults as a subprocess,
+     its last line held to rc 0, no `error` or `skeleton_error`, value,
+     device_step_s, clouds_per_min_e2e and slab_launches_per_forward above
+     0, and the bench tree's 356,709 points; (b) the supervisor with `--tiny
+     --fault raise`: a non-zero exit and one JSON line carrying `error`; (c)
+     the roofline (smart_tree_tpu_torch/tools/roofline.py) of (a)'s batch
+     capacities: the forward's FLOPs and bytes and their shares of the
+     card's peaks at (a)'s device time, printed, not gated; a `{"bench": ...}`
+     line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
-parallel phase's, the last modules', the tools' and the probes' numbers, and
-as the last line {"ok": true, "device": {...}}.
+parallel phase's, the last modules', the tools', the probes' and the bench's
+numbers, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -143,16 +155,18 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+# H100 SXM published peaks (dense): device memory bytes/s, bf16 tensor-core
+# FLOP/s, fp32 (non-tensor-core) FLOP/s
+from smart_tree_tpu_torch.tools import roofline  # noqa: E402
+from smart_tree_tpu_torch.tools.roofline import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+
 WEIGHTS = REPO / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
 BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
 SMALL_TREE = dict(seed=3, height=2.0, trunk_radius=0.08, points_per_m2=3000.0,
                   foliage_points=300)
 MAX_BATCH_CAPACITY = 262144
-# H100 SXM published peaks (dense): device memory bytes/s, bf16 tensor-core
-# FLOP/s, fp32 (non-tensor-core) FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SLAB_ATOL = 2e-4   # bf16 operands on both sides: fp32 summation order only
 FUSED_TOL = dict(rtol=1e-4, atol=1e-5)   # fp32 both sides
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)   # the tests' model tolerance
@@ -246,6 +260,10 @@ PROBE_FIRST_RTOL = 1e-4
 PROBE_RTOL = 2e-2
 PROBE_WARMUP_STEPS = 5
 PROBE_LOSSES = ("radius", "direction", "class_l")
+# phase 19: the port's bench (smart_tree_tpu_torch/bench.py) at its shipped
+# defaults, as a subprocess; its tree is the bench tree of PERF.md section 2
+BENCH_POINTS = 356709
+BENCH_TIMEOUT_S = 600
 
 
 T_START = time.perf_counter()
@@ -1251,6 +1269,67 @@ def probes_phase(torch, np, card):
     return result, launches, problems
 
 
+def run_bench_cli(*args: str) -> tuple:
+    """`python -m smart_tree_tpu_torch.bench *args` from the repo root, in a
+    session of its own that is killed whole on a timeout: (rc, the
+    non-empty lines of its standard output)."""
+    proc = subprocess.Popen([sys.executable, "-m", "smart_tree_tpu_torch.bench", *args],
+                            cwd=REPO, stdout=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"bench {args}: no result in {BENCH_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    if not lines:
+        raise AssertionError(f"bench {args}: rc {proc.returncode}, no output")
+    return proc.returncode, lines
+
+
+def bench_phase(card):
+    """Phase 19: (a) the port's bench at its shipped defaults on the card,
+    its line held to the harness's contract; (b) the supervisor with an
+    injected fault must exit non-zero with one JSON line carrying `error`;
+    (c) the roofline's whole-forward FLOPs and bytes at (a)'s batch
+    capacities against its device time, printed, not gated. Returns the
+    phase's line."""
+    t0 = time.perf_counter()
+    rc, lines = run_bench_cli()
+    bench = json.loads(lines[-1])
+    log(f"bench: rc {rc}, {bench}")
+    problems = [f"{k}: {bench[k]}" for k in ("error", "skeleton_error") if k in bench]
+    if rc != 0:
+        problems.append(f"rc {rc}")
+    for key in ("value", "device_step_s", "clouds_per_min_e2e", "slab_launches_per_forward"):
+        if not (bench.get(key) or 0) > 0:
+            problems.append(f"{key} = {bench.get(key)}")
+    if bench.get("n_points") != BENCH_POINTS:
+        problems.append(f"n_points {bench.get('n_points')}, the bench tree has {BENCH_POINTS}")
+    if problems:
+        raise AssertionError(f"the port's bench: {'; '.join(problems)}")
+    bench_s = time.perf_counter() - t0
+
+    fault_rc, fault_lines = run_bench_cli("--tiny", "--fault", "raise")
+    fault_line = json.loads(fault_lines[-1])
+    if fault_rc == 0 or "error" not in fault_line:
+        raise AssertionError(f"bench --fault raise: rc {fault_rc}, {fault_line}")
+    if sum(ln.lstrip().startswith("{") for ln in fault_lines) != 1:
+        raise AssertionError(f"bench --fault raise printed other JSON lines: {fault_lines}")
+
+    total = roofline.forward_totals(bench["batch_capacities"], factor=0.5,
+                                    itemsize=roofline.ITEMSIZE["bfloat16"])
+    shares = roofline.achieved(total, bench["device_step_s"], "bfloat16")
+    log(f"roofline of one forward at {bench['batch_capacities']}: {total}, {shares}")
+    return {"card": card, "bench": bench, "bench_s": bench_s,
+            "fault_rc": fault_rc, "fault_error": fault_line["error"],
+            "roofline": {**total, **shares, "precision": "bfloat16",
+                         "peak_flops": roofline.PEAK_FLOPS["bfloat16"],
+                         "peak_bytes_per_s": roofline.HBM_BYTES_PER_S},
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -1258,7 +1337,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
               "an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     import numpy as np
 
     from smart_tree_tpu_torch.core import fused_conv, kernels, slab_conv
@@ -1829,6 +1907,10 @@ def main() -> int:
     # 18. the training probes; a failed check fails the script after its line
     probes, probe_launches, probe_problems = probes_phase(torch, np, card)
 
+    # 19. the port's bench and the roofline of its forward, in a child process
+    torch.cuda.empty_cache()
+    bench = bench_phase(card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1861,6 +1943,7 @@ def main() -> int:
               launches_in_bf16_evaluations=eval_launches,
               launches_in_forest_scan=forest_launches,
               launches_in_probes=probe_launches["slab_gather_conv"],
+              launches_per_bench_forward=bench["bench"]["slab_launches_per_forward"],
               forward_kernel_ms=slab_forward_ms,
               forward_fragment_ms=slab_fragment_ms),
         entry(fused_rows_out,
@@ -1895,6 +1978,7 @@ def main() -> int:
     print(json.dumps({"remaining_modules": remaining}), flush=True)
     print(json.dumps({"tools": tools}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     if probe_problems:
         raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
