@@ -17,7 +17,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the plain version, the gather + torch.matmul composition (library_ms)
      and the least time the card could take;
   4. bf16 forward of the bench tree (generate_tree seed 0, 12 m,
-     noble-elevator-58, batch capacity <= 262144): one warm-up, counts
+     noble-elevator-58, batches sized by ModelInference): one warm-up, counts
      reset, three timed forwards; the slab kernel must have launched; then
      one more forward under torch.profiler for the slab kernel's summed
      device time and launches inside one forward;
@@ -31,7 +31,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      cell reduction, KNN graph, components, SSSP, root distances, and
      Skeletonizer.forward as a whole;
   8. the whole pipeline on the bench tree (the default configuration but
-     bf16 and the batch capacity cap): Pipeline.process_cloud into a
+     bf16): Pipeline.process_cloud into a
      temporary directory, one warm-up and one timed run; the slab kernel
      must have launched inside it, the skeleton must have branches, and the
      four PLYs must hold the counts the skeleton implies;
@@ -105,7 +105,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      BASELINE.md's JAX CPU fp32 values, and noble-elevator-58 on seed 100 at
      both precisions; diagnose_direction (seed 100) and diagnose_e2e
      (synthetic-r2) on the card; (d) the forest scan at bench_scan's
-     defaults (6 trees, 8,000 points/m^2, bf16, batch ceiling 131,072) with
+     defaults (6 trees, 8,000 points/m^2, bf16) with
      the skeleton stage: one warm-up and one timed forward, the slab kernel
      launched, finite outputs, at least one skeleton and 6 branches, every
      skeleton point inside the scan's bounds +-1 m; stage seconds, graph
@@ -135,12 +135,36 @@ Phases, each fatal on failure (exit code != 0, no result line):
      capacities: the forward's FLOPs and bytes and their shares of the
      card's peaks at (a)'s device time, printed, not gated; a `{"bench": ...}`
      line.
+ 20. the batch sizing at the card's budget (core/memory.py): (a) the card's
+     total memory, the budget (0.75 of it) and ModelInference's largest batch
+     capacity at max_in_flight 1 and 2, fp32 and bf16; (b) at every pow2
+     capacity from 65,536 to that largest one, a batch of four synthetic
+     blocks (SIZING_*) in each layout, dense layers through the culled
+     forward at fp32 and bf16, level_capacity_factor 1.0 and 0.5, random
+     voxels at fp32 1.0 and bf16 0.5; then at factor 0.5, fp32 and bf16, the
+     bench tree's batches and the forest's densest blocks' batches alone,
+     which rerun; then random blocks under a budget sized for their batch,
+     which the reruns do not fit, so that the batch splits. In each, reruns
+     and splits included, the peak bytes allocated must not pass the
+     footprint model with the card's terms before its 1.5x headroom at the
+     largest run made (their ratio is printed), every run's model as the
+     plan charges it must fit the budget, and at the largest capacity every
+     route-3 gather of the layers must chunk as ConvConfig.chunked says; (c)
+     a cloud of two layered batches at the largest capacity with two in
+     flight, within the budget and the model; (d) the slab kernel on level 0
+     of the largest batch at each (Cin, Cout) it takes there, against its
+     plain version at SLAB_ATOL and timed as in 3; (e) fp32 predictions
+     under the card's plan against a second ModelInference held to the old
+     262,144 ceiling, on the bench tree, on the forest's first 16 blocks
+     and on four dense blocks that the old ceiling splits into four
+     batches, within MODEL_TOL, with the class agreement; a `{"sizing":
+     ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
-parallel phase's, the last modules', the tools', the probes' and the bench's
-numbers, and as the last line {"ok": true, "device": {...}}.
+parallel phase's, the last modules', the tools', the probes', the bench's
+and the sizing's numbers, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -166,7 +190,6 @@ BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
 SMALL_TREE = dict(seed=3, height=2.0, trunk_radius=0.08, points_per_m2=3000.0,
                   foliage_points=300)
-MAX_BATCH_CAPACITY = 262144
 SLAB_ATOL = 2e-4   # bf16 operands on both sides: fp32 summation order only
 FUSED_TOL = dict(rtol=1e-4, atol=1e-5)   # fp32 both sides
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)   # the tests' model tolerance
@@ -264,6 +287,32 @@ PROBE_LOSSES = ("radius", "direction", "class_l")
 # defaults, as a subprocess; its tree is the bench tree of PERF.md section 2
 BENCH_POINTS = 356709
 BENCH_TIMEOUT_S = 600
+# phase 20: batch sizing at the card's budget. Synthetic batches of four 4 m
+# blocks, 8 m apart, each SIZING_FILL / 4 of the capacity in occupied 1 cm
+# voxels of a SIZING_SIDE^3 cube, one point a voxel within SIZING_JITTER
+# voxel of its centre (the first point of a block, in voxel 0, SIZING_ANCHOR
+# off, so that it is the block's minimum corner and every other point floors
+# into its own voxel), in two layouts: "layers", horizontal layers
+# SIZING_LAYER_VOXELS apart (dense surfaces: each level some 4x smaller than
+# the one above), and "random", voxels drawn at random through the cube
+# (some 3 outputs a voxel at the stride-2 convs, so levels grow past the
+# batch capacity and every batch reruns)
+SIZING_MIN_CAPACITY = 65536
+# the (precision, factor) forwards of the random layout: the plan's worst
+# case and the default configuration's (the peaks of fp32 and bf16 are
+# equal there: the activations are fp32 in both)
+SIZING_RANDOM_RUNS = (("float32", 1.0), ("bfloat16", 0.5))
+SIZING_FILL = 0.7
+SIZING_SIDE = 360
+SIZING_LAYER_VOXELS = 10
+SIZING_JITTER = 0.2
+SIZING_ANCHOR = -0.45
+# the ceiling the port copied from the JAX bench (the TPU host's compile
+# helper), set on a second ModelInference in (e) only, to compare plans
+OLD_CEILING = 262144
+FOREST_COMPARE_BLOCKS = 16
+# the forest's densest blocks, whose batches run alone at factor 0.5 in (b)
+FOREST_DENSE_BLOCKS = 8
 
 
 T_START = time.perf_counter()
@@ -475,9 +524,7 @@ def transfer_phase(torch, np, cloud, card):
             raise AssertionError(f"native dedup differs from numpy on the block at {centre}")
 
     def make(**kw):
-        mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
-        mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
-        return mi
+        return ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
 
     def counted_forward(mi):
         """(cloud, seconds, B1 launches, B2 launches, link bytes) of one forward."""
@@ -612,7 +659,6 @@ def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
         for name, devices in (("one", ["cuda:0"]), ("two_replicas", ["cuda:0", "cuda:0"])):
             mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", devices=devices,
                                 **kw)
-            mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
             # no warm-up: phase 14 ran these batches in both modes (the time
             # of the two-replica forward includes copying the model twice)
             slab_conv.slab_gather_conv.launches = 0
@@ -1145,8 +1191,10 @@ def tools_phase(torch, np, card):
     # the host tiling alone (one of the forward's layers), as the forward tiles
     t0 = time.perf_counter()
     tiler = BlockTiler(cloud, 0.01, 4.0, 0.4)
-    n_batches = sum(1 for _ in tiler.batches(4, max_capacity=bench_scan.MAX_BATCH_CAPACITY))
-    tiling = {"blocks": len(tiler), "batches": n_batches, "seconds": time.perf_counter() - t0}
+    cap = ModelInference(WEIGHTS, precision="bfloat16").max_batch_capacity
+    n_batches = sum(1 for _ in tiler.batches(4, max_capacity=cap))
+    tiling = {"blocks": len(tiler), "batches": n_batches, "max_batch_capacity": cap,
+              "seconds": time.perf_counter() - t0}
     del tiler
     slab_conv.slab_gather_conv.launches = 0
     report, lc, skel = bench_scan.scan(cloud, FOREST_TREES, skeletonize=True)
@@ -1330,6 +1378,335 @@ def bench_phase(card):
             "phase_s": time.perf_counter() - t0}
 
 
+def dense_blocks(np, n_blocks: int, voxels: int, seed: int, layout: str = "layers"):
+    """A cloud of `n_blocks` blocks of `voxels` occupied voxels each in
+    `layout` "layers" or "random" (phase 20's synthetic batches; see
+    SIZING_* above)."""
+    from smart_tree_tpu_torch.data.cloud import Cloud
+
+    rng = np.random.default_rng(seed)
+    if layout == "layers":
+        layer, rest = np.divmod(np.arange(voxels), SIZING_SIDE * SIZING_SIDE)
+        row, col = np.divmod(rest, SIZING_SIDE)
+        ijk = [np.stack([row, layer * SIZING_LAYER_VOXELS, col], axis=1)] * n_blocks
+    else:
+        ijk = []
+        for _ in range(n_blocks):
+            cells = np.unique(rng.integers(1, SIZING_SIDE ** 3, int(1.05 * voxels) + 64))
+            cells = np.concatenate([[0], rng.permutation(cells)[: voxels - 1]])
+            if len(cells) != voxels:
+                raise AssertionError(f"{len(cells)} random voxels, not {voxels}")
+            ijk.append(np.stack(np.unravel_index(cells, (SIZING_SIDE,) * 3), axis=1))
+    xyz = []
+    for b, cells in enumerate(ijk):
+        cells = cells + 0.5
+        jitter = rng.uniform(-SIZING_JITTER, SIZING_JITTER, cells.shape)
+        jitter[0] = SIZING_ANCHOR
+        xyz.append(((cells + jitter) * 0.01 + np.array([8.0 * b + 0.2, 0.2, 0.2]))
+                   .astype(np.float32))
+    xyz = np.concatenate(xyz)
+    return Cloud(xyz=xyz, rgb=np.zeros_like(xyz))
+
+
+def sizing_phase(torch, np, card):
+    """Phase 20: the batch sizing at the card's budget. (a) the budget and
+    the largest batch capacity ModelInference plans; (b) at every pow2
+    capacity from SIZING_MIN_CAPACITY to it, culled forwards of a batch of
+    four blocks in each layout (layers at fp32 and bf16, factor 1.0 and 0.5;
+    random at SIZING_RANDOM_RUNS), then real batches that rerun and a
+    batch that splits: each peak allocated held against the footprint model
+    (core/memory.py) at the largest run made, and route 3's gathers at the
+    largest capacity against `ConvConfig.chunked`; (c) a cloud of two layered
+    batches at the largest
+    capacity, max_in_flight 2, within the budget; (d) the slab kernel on
+    level 0 of the largest batch against its plain version, timed; (e) the
+    card's plan against the old 262,144 ceiling at fp32 on the bench tree,
+    the forest's first blocks and four dense blocks. Returns the phase's line
+    and (d)'s rows."""
+    from smart_tree_tpu_torch.core import slab_conv, sparse_ops
+    from smart_tree_tpu_torch.core.memory import estimate_forward_hbm, footprint_terms
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.dataset import BlockTiler
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.tools import bench_scan
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    # (a) the budget and the plan
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    mis = {(p, f): ModelInference(WEIGHTS, precision=p, level_capacity_factor=f,
+                                  medial_classes=(0,))
+           for p in ("float32", "bfloat16") for f in (1.0, 0.5)}
+    budget = mis["float32", 1.0].hbm_budget_bytes
+    planes = mis["float32", 1.0].model.unet_planes
+    plan = {f"{p}_in_flight{k}": ModelInference(WEIGHTS, precision=p, max_in_flight=k)
+            .max_batch_capacity for p in ("float32", "bfloat16") for k in (1, 2)}
+    max_cap = mis["float32", 1.0].max_batch_capacity
+    terms = footprint_terms([dev])   # the model's terms as ModelInference sizes with them
+    result = {"card": card, "total_memory": total_memory, "budget_bytes": budget,
+              "max_batch_capacity": plan, "footprint_terms": terms}
+    log(f"sizing: {card}, total memory {total_memory}, budget {budget}, capacities {plan}, "
+        f"footprint terms {terms}")
+    if max_cap < SIZING_MIN_CAPACITY:
+        raise AssertionError(f"the card's budget admits batch capacity {max_cap} only")
+
+    def batches_of(cloud, cap):
+        return list(BlockTiler(cloud, 0.01, 4.0, 0.4).batches(4, max_capacity=cap))
+
+    def peak_of(fn):
+        """(the peak bytes fn allocated above what was allocated before,
+        the peak bytes allocated in all, seconds)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return peak - base, peak, time.perf_counter() - t0
+
+    def counted_runs(mi):
+        """The calls of mi's culled run half (reruns of an overflowed batch
+        and the halves of a split one among them) as (capacity, level
+        capacities or None), recorded on the instance."""
+        runs = []
+        inner = mi._run_batch_culled
+        mi._run_batch_culled = lambda vb, level_caps=None: (
+            runs.append((len(vb.coords), level_caps)), inner(vb, level_caps))[1]
+        return runs
+
+    gathers = []
+    route3 = sparse_ops._gather_gemm
+
+    def recorded_gather_gemm(feats, rulebook, weights, cfg, chunked):
+        gathers.append((rulebook.shape[0], weights.shape[0] * weights.shape[1], chunked))
+        return route3(feats, rulebook, weights, cfg, chunked)
+
+    def one_batch(mi, vb):
+        """vb alone through mi's planned culled path (run, collect, reruns)."""
+        mi._collect_culled(vb, mi._run_batch_culled(vb), ([], [], [], []))
+
+    def held(what, mi, fn, batches, **head):
+        """Run fn (mi's forward of `batches` batches, one at a time) and hold
+        its peak against the footprint model before headroom at the largest
+        run it made: a first run at its batch's capacity and mi's factor, a
+        rerun at its level capacities. Every run's model as the plan charges
+        it (max_in_flight batches in flight) must fit mi's budget."""
+        precision, factor = mi.precision, mi.level_capacity_factor
+        runs = counted_runs(mi)
+        gathers.clear()
+        sparse_ops._gather_gemm = recorded_gather_gemm
+        try:
+            measured, peak, dt = peak_of(fn)
+        finally:
+            sparse_ops._gather_gemm = route3
+            del mi._run_batch_culled
+
+        def model(t, in_flight=1):
+            return max(estimate_forward_hbm(c, planes, factor, in_flight=in_flight,
+                                            level_caps=lc, **t)["peak"] for c, lc in runs)
+
+        est = model(terms)
+        planned = model(mi.footprint_terms, max(1, mi.max_in_flight))
+        jax_model = model({}) / 1.5   # the JAX package's terms, the CPU's
+        row = {"case": what, **head, "precision": precision, "factor": factor,
+               "measured_bytes": measured, "allocated_bytes": peak,
+               "model_peak_bytes": est, "model_bytes": est / 1.5, "ratio": measured / est * 1.5,
+               "jax_model_bytes": jax_model, "jax_ratio": measured / jax_model,
+               "reruns": sum(lc is not None for _, lc in runs),
+               "splits": sum(lc is None for _, lc in runs) - batches,
+               "largest_run": max(runs, key=lambda r: sum(r[1] or (r[0],))),
+               "planned_peak_bytes": planned, "budget_bytes": mi.hbm_budget_bytes,
+               "route3_gathers": len(gathers),
+               "route3_chunked": sum(1 for *_, c in gathers if c),
+               "largest_whole_gather_bytes": max(
+                   [4 * m * w for m, w, c in gathers if not c], default=0),
+               "seconds": dt}
+        log(f"sizing {row}")
+        # held to the model without its headroom: the 1.5x stays a margin
+        if measured > est / 1.5:
+            raise AssertionError(f"{what} {head} {precision} factor {factor}: {measured} "
+                                 f"bytes, the model {est / 1.5} before headroom")
+        if planned > mi.hbm_budget_bytes:
+            raise AssertionError(f"{what} {head} {precision} factor {factor}: a run planned at "
+                                 f"{planned} bytes, past the budget {mi.hbm_budget_bytes}")
+        return row
+
+    # (b) the footprint at each capacity against the model: synthetic
+    # batches in both layouts, then the bench tree's batches and the
+    # forest's densest blocks alone, which rerun at factor 0.5, and a batch
+    # whose reruns pass a budget sized for it, which splits
+    rows = []
+    cap = SIZING_MIN_CAPACITY
+    largest = None
+    while cap <= max_cap:
+        voxels = int(SIZING_FILL * cap) // 4
+        for layout in ("layers", "random"):
+            cloud = dense_blocks(np, 4, voxels, seed=cap, layout=layout)
+            (vb,) = batches_of(cloud, max_cap)
+            if len(vb.coords) != cap or vb.n_valid != 4 * voxels:
+                raise AssertionError(f"capacity {cap} {layout}: a batch of {len(vb.coords)} "
+                                     f"rows holding {vb.n_valid} voxels, not {4 * voxels}")
+            for key, mi in mis.items():
+                if layout == "random" and key not in SIZING_RANDOM_RUNS:
+                    continue
+                row = held(layout, mi, lambda: mi.forward(cloud), 1, capacity=cap,
+                           voxels=4 * voxels)
+                rows.append(row)
+                if cap == max_cap and layout == "layers":
+                    for m, w, chunked in gathers:
+                        if chunked != sparse_ops.ConvConfig().chunked(m, w):
+                            raise AssertionError(f"route 3 at [{m}, {w}]: chunked {chunked}")
+                        if not chunked and 4 * m * w > sparse_ops.CHUNK_BYTES:
+                            raise AssertionError(f"route 3 gathered [{m}, {w}] whole")
+            if layout == "layers":
+                largest = vb
+        cap *= 2
+    forest = bench_scan.make_forest(FOREST_TREES, FOREST_POINTS_PER_M2)
+    bench_tree = CentreCloud()(generate_tree(**BENCH_TREE)[0])
+    q = np.floor(np.asarray(forest.xyz) / 4.0).astype(np.int64)
+    _, inverse, block_points = np.unique(q, axis=0, return_inverse=True, return_counts=True)
+    inverse = inverse.reshape(-1)
+    dense = np.argsort(block_points)[::-1][:FOREST_DENSE_BLOCKS]
+    real = [("bench_tree", vb) for vb in batches_of(bench_tree, max_cap)]
+    real += [("forest_dense_blocks", vb) for vb in
+             batches_of(forest.filter(np.isin(inverse, dense)), max_cap)]
+    for what, vb in real:
+        for precision in ("float32", "bfloat16"):
+            mi = mis[precision, 0.5]
+            rows.append(held(what, mi, lambda: one_batch(mi, vb), 1,
+                             capacity=len(vb.coords), voxels=vb.n_valid))
+    voxels = int(SIZING_FILL * SIZING_MIN_CAPACITY) // 4
+    cloud = dense_blocks(np, 4, voxels, seed=SIZING_MIN_CAPACITY, layout="random")
+    small = ModelInference(WEIGHTS, precision="float32", medial_classes=(0,),
+                           hbm_budget_bytes=estimate_forward_hbm(
+                               SIZING_MIN_CAPACITY, planes, 1.0, in_flight=2, **terms)["peak"])
+    row = held("random_split", small, lambda: small.forward(cloud), 1,
+               capacity=SIZING_MIN_CAPACITY, voxels=4 * voxels)
+    if small.max_batch_capacity != SIZING_MIN_CAPACITY or row["splits"] < 1:
+        raise AssertionError(f"the split case planned {small.max_batch_capacity}, split "
+                             f"{row['splits']} times")
+    rows.append(row)
+    for what in ("bench_tree", "forest_dense_blocks"):
+        if not any(r["reruns"] for r in rows if r["case"] == what):
+            raise AssertionError(f"no batch of the {what} reran at factor 0.5")
+    result["footprint"] = rows
+    del small, cloud
+
+    # (c) two batches at the largest capacity, two in flight
+    voxels = int(SIZING_FILL * max_cap) // 4
+    cloud = dense_blocks(np, 8, voxels, seed=1)
+    caps2 = [len(b.coords) for b in batches_of(cloud, max_cap)]
+    if caps2 != [max_cap, max_cap]:
+        raise AssertionError(f"two-batch cloud tiled into {caps2}")
+    mi = mis["float32", 1.0]
+    runs = counted_runs(mi)
+    measured, peak, dt = peak_of(lambda: mi.forward(cloud))
+    del mi._run_batch_culled
+    est = estimate_forward_hbm(max_cap, planes, 1.0, in_flight=mi.max_in_flight, **terms)
+    result["two_batches"] = {"capacities": caps2, "max_in_flight": mi.max_in_flight,
+                             "measured_bytes": measured, "allocated_bytes": peak,
+                             "model_peak_bytes": est["peak"], "runs": len(runs),
+                             "seconds": dt}
+    log(f"sizing two batches: {result['two_batches']}")
+    if peak > budget or measured > est["peak"] / 1.5:
+        raise AssertionError(f"two batches in flight: {peak} bytes allocated, budget {budget}, "
+                             f"the model's peak {est['peak']} (with its 1.5x headroom)")
+    del cloud
+
+    # (d) the slab kernel on level 0 of the largest batch (bf16, factor 0.5)
+    mi16 = mis["bfloat16", 0.5]
+    level_caps = None
+    while True:
+        x, plan16, _ = mi16._plan_batch(largest, level_caps)
+        counts = [int(lv.count) for lv in plan16.levels]
+        caps = [lv.keys.shape[0] for lv in plan16.levels]
+        if all(c <= k for c, k in zip(counts, caps)):
+            break
+        level_caps = ModelInference._retry_caps(counts, caps)
+    slab_min = sparse_ops.ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
+    tall = {}
+    for name, rb, lvl, cin, cout in unet_convs(plan16, planes):
+        if name.startswith("L0.") and rb.shape[0] >= slab_min and (
+                (cin, cout) not in tall or rb.shape[0] > tall[cin, cout][1].shape[0]):
+            tall[cin, cout] = (name, rb, plan16.levels[lvl].keys.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    slab_rows = []
+    for (cin, cout), (name, rb, n) in sorted(tall.items()):
+        feats = torch.randn((n, cin), generator=gen, device=dev)
+        w = torch.randn((27, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
+        got = slab_conv.slab_gather_conv(feats, rb, w)
+        ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=0, atol=SLAB_ATOL):
+            raise AssertionError(f"slab kernel at M={rb.shape[0]} {name} ({cin}->{cout}): "
+                                 f"max abs err {err}")
+        del got, ref
+        m = rb.shape[0]
+        out = torch.empty((m, cout), dtype=torch.float32, device=dev)
+        scratch = slab_conv._scratch(w)
+        fe16 = torch.cat([feats, feats.new_zeros((1, cin))]).to(torch.bfloat16)
+        idx = torch.where(rb >= 0, rb, n).long()
+        w16 = w.to(torch.bfloat16).reshape(27 * cin, cout)
+        b_ms, b_by = bound(rb, cin, cout, "bfloat16")
+        row = {
+            "conv": f"cap{largest.coords.shape[0]}.{name}", "cin": cin, "cout": cout,
+            "m": m, "n": n, "max_abs_err": err,
+            "ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv(feats, rb, w)),
+            "kernel_ms": cuda_time_ms(torch, lambda: slab_conv._launch(feats, rb, w, scratch,
+                                                                       out)),
+            "plain_ms": cuda_time_ms(torch, lambda: slab_conv.slab_gather_conv_plain(
+                feats, rb, w)),
+            "library_ms": cuda_time_ms(torch, lambda: torch.matmul(fe16[idx].view(m, -1), w16)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        log(f"slab at the card's capacity {name} {cin}->{cout} M={m}: {row}")
+        slab_rows.append(row)
+        del feats, w, out, scratch, fe16, idx, w16
+    if not slab_rows:
+        raise AssertionError("no level-0 conv of the largest batch reaches the slab kernel")
+    del x, plan16, largest
+
+    # (e) the card's plan against the old ceiling, fp32
+    agreement = {}
+    first = np.flatnonzero(block_points > 20)[:FOREST_COMPARE_BLOCKS]   # BlockTiler's order
+    forest16 = forest.filter(np.isin(inverse, first))
+    del forest, q, inverse
+    # the bench tree and the forest keep their batches under the card's plan;
+    # four dense blocks of a 1,048,576-voxel batch ship one a batch under the
+    # old ceiling
+    dense_cap = min(max_cap, 1 << 20)
+    for what, cloud in (("bench_tree", bench_tree),
+                        ("forest_first_blocks", forest16),
+                        ("dense_blocks", dense_blocks(np, 4, int(SIZING_FILL * dense_cap) // 4,
+                                                      seed=3))):
+        card_mi = ModelInference(WEIGHTS, precision="float32")
+        old_mi = ModelInference(WEIGHTS, precision="float32")
+        old_mi.max_batch_capacity = OLD_CEILING
+        outs, plans = [], []
+        for mi in (card_mi, old_mi):
+            plans.append([len(b.coords) for b in batches_of(cloud, mi.max_batch_capacity)])
+            out = mi.predict(cloud)
+            order = np.lexsort(np.concatenate([out["xyz"], out["rgb"]], axis=1).T)
+            outs.append({k: v[order] for k, v in out.items()})
+        got, ref = outs
+        np.testing.assert_array_equal(got["xyz"], ref["xyz"])
+        for k in ("radius", "direction", "class_logits"):
+            np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=f"{what} {k}")
+        agree = float((got["class_logits"].argmax(1) == ref["class_logits"].argmax(1)).mean())
+        agreement[what] = {"points": len(cloud), "voxels": len(got["xyz"]),
+                           "card_plan": plans[0], "old_ceiling_plan": plans[1],
+                           "class_agreement": agree}
+        log(f"sizing {what}: card plan {plans[0]}, old ceiling {plans[1]}, "
+            f"class agreement {agree}")
+    if agreement["dense_blocks"]["card_plan"] == agreement["dense_blocks"]["old_ceiling_plan"]:
+        raise AssertionError("the dense blocks' batches are the same under the old ceiling")
+    result["plans"] = agreement
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result, slab_rows
+
+
 def main() -> int:
     import torch
 
@@ -1369,7 +1746,6 @@ def main() -> int:
     cloud = CentreCloud()(cloud)
     mi16 = ModelInference(WEIGHTS, voxel_size=0.01, block_size=4.0, buffer_size=0.4,
                           batch_size=4, precision="bfloat16")
-    mi16.max_batch_capacity = min(mi16.max_batch_capacity, MAX_BATCH_CAPACITY)
     batches = list(BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
         4, max_capacity=mi16.max_batch_capacity))
     # every 27-column conv of every batch, on the plan the forward settles on
@@ -1537,7 +1913,6 @@ def main() -> int:
     mi32f = ModelInference(WEIGHTS, batch_size=4, precision="float32", fused=True)
     mi32 = ModelInference(WEIGHTS, batch_size=4, precision="float32")
     for mi in (mi32f, mi32):
-        mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
         mi.predict(cloud)  # warm-up
     slab_conv.slab_gather_conv.launches = 0
     fused_conv.fused_gather_gemm.launches = 0
@@ -1843,7 +2218,6 @@ def main() -> int:
 
         val_cloud = CentreCloud()(load_data_npz(work / split["validation"][0])[0])
         served = ModelInference(run_dir / "best_weights.npz", precision="bfloat16")
-        served.max_batch_capacity = min(served.max_batch_capacity, MAX_BATCH_CAPACITY)
         slab_conv.slab_gather_conv.launches = 0
         # forward() returns exp(log radius) * direction. After some 40 steps at
         # lr 0.01 the running statistics still lag the weights, and on some
@@ -1911,6 +2285,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench = bench_phase(card)
 
+    # 20. the batch sizing at the card's budget
+    torch.cuda.empty_cache()
+    sizing, slab_tall_rows = sizing_phase(torch, np, card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1919,7 +2297,8 @@ def main() -> int:
         summed; per-shape rows under "shapes"."""
         return {
             **head,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in rows + head.get("card_capacity_shapes", [])),
             "ms": summed(rows, "ms"),
             "kernel_ms": summed(rows, "kernel_ms"),
             "plain_ms": summed(rows, "plain_ms"),
@@ -1945,7 +2324,8 @@ def main() -> int:
               launches_in_probes=probe_launches["slab_gather_conv"],
               launches_per_bench_forward=bench["bench"]["slab_launches_per_forward"],
               forward_kernel_ms=slab_forward_ms,
-              forward_fragment_ms=slab_fragment_ms),
+              forward_fragment_ms=slab_fragment_ms,
+              card_capacity_shapes=slab_tall_rows),
         entry(fused_rows_out,
               name="fused_gather_gemm", route="cuda",
               source="smart_tree_tpu_torch/csrc/fused_conv.cu",
@@ -1979,6 +2359,7 @@ def main() -> int:
     print(json.dumps({"tools": tools}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"sizing": sizing}), flush=True)
     if probe_problems:
         raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,8 @@ the JAX package's TPU bench.
 Workload: `generate_tree(seed=0, height=12, trunk_radius=0.25,
 points_per_m2=12000, foliage_points=20000)`, centred, through
 noble-elevator-58 at bf16 (voxel 0.01 m, block 4 m, buffer 0.4 m, batch 4,
-`level_capacity_factor=0.5`, culled to class 0, batch ceiling 262,144).
+`level_capacity_factor=0.5`, culled to class 0, batches sized by
+`ModelInference`'s budget).
 
 `main` is a supervisor. It runs the measurement once, in the shipped
 configuration, in a child process, and always prints one JSON line as the
@@ -50,7 +51,6 @@ UNIT = "points/sec"
 # BASELINE.md:158: the JAX package's reference-semantics forward of this
 # workload on a CPU (`bench.py --record-cpu-baseline`); not a TPU figure
 CPU_BASELINE_POINTS_PER_SEC = 8_873.0
-MAX_BATCH_CAPACITY = 262144
 TINY = dict(points_per_m2=120.0, foliage_points=200, height=6.0, reps=1, dev_reps=1)
 FAULTS = ("raise", "exit-after-warmup")
 ATTEMPT_TIMEOUT_S = 2700.0
@@ -178,7 +178,6 @@ def run_bench(
         weights, voxel_size=0.01, block_size=4.0, buffer_size=0.4, batch_size=4,
         precision="bfloat16", level_capacity_factor=0.5, medial_classes=(0,), device=dev,
     )
-    mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
     # the batch capacities the forward runs at, for the roofline's count
     capacities = [len(vb.coords) for vb in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
         4, max_capacity=mi.max_batch_capacity)]

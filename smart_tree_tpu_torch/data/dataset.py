@@ -437,3 +437,28 @@ def collate_blocks(
         origins=origins,
         voxel_size=voxel_size,
     )
+
+
+def halve_batch(vb: VoxelBatch) -> Tuple[VoxelBatch, VoxelBatch] | None:
+    """A block batch split into two padded pow2 batches of the first and the
+    last half of its blocks (rows, batch indices and origins unchanged);
+    None for a batch of one block."""
+    n = vb.n_valid
+    items = vb.coords[:n, 0]
+    blocks = np.unique(items)
+    if len(blocks) < 2:
+        return None
+    first = items < blocks[len(blocks) // 2]
+    halves = []
+    for rows in (np.flatnonzero(first), np.flatnonzero(~first)):
+        cap = _ceil_pow2(len(rows))
+        coords = np.full((cap, 4), -1, np.int32)
+        feats = np.zeros((cap, vb.feats.shape[1]), np.float32)
+        mask = np.zeros(cap, bool)
+        valid = np.zeros(cap, bool)
+        coords[: len(rows)] = vb.coords[rows]
+        feats[: len(rows)] = vb.feats[rows]
+        mask[: len(rows)] = vb.mask[rows]
+        valid[: len(rows)] = True
+        halves.append(vb._replace(feats=feats, coords=coords, mask=mask, valid=valid))
+    return tuple(halves)

@@ -30,11 +30,26 @@ group launched on its own device's replica before the group is collected,
 so the rows come back in the JAX package's multichip order.
 
 A batch whose UNet level overflowed reruns the same mode with counts-driven
-level capacities. `max_in_flight` batches are queued before the host
-collects the oldest: the run half of every mode only queues work (pinned
-uploads, a device-side partition, downloads into pinned buffers on a copy
-stream that waits for an event of its own batch), and the host waits for that
-batch's event only, so collecting batch i overlaps batch i+1 on the card.
+level capacities (a stride-2 level can hold up to 8x the voxels of the one
+above it, so these can pass the batch capacity). The rerun is held to the
+budget as the plan is: at the JAX package's capacities (2x an overflowed
+count) where the model's peak fits, else at the counts alone, else the
+batch is split into two halves of its blocks that run afresh; a single
+block whose rerun does not fit runs past the budget, with a warning.
+
+`max_in_flight` batches are queued before the host collects the oldest: the
+run half of every mode only queues work (pinned uploads, a device-side
+partition, downloads into pinned buffers on a copy stream that waits for an
+event of its own batch), and the host waits for that batch's event only, so
+collecting batch i overlaps batch i+1 on the card.
+
+Batches are sized against `hbm_budget_bytes` (core/memory.py): the largest
+pow2 batch capacity whose estimated forward peak at level capacity factor
+1.0 fits it, and every overflow rerun is held to it (above). By default
+(`None`) the budget is 0.75 of the card's total memory, split between the
+replicas that share a card, and the model counts the port's own footprint
+terms; on the CPU both are the JAX package's (12 GiB), so that the CPU
+splits a cloud into the reference's batches.
 
 The forward runs eagerly; `precision` ("float32" or "bfloat16") and the
 batch capacity reach every conv as arguments (core/sparse_ops.py). With
@@ -46,6 +61,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import logging
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -53,14 +69,21 @@ import numpy as np
 import torch
 
 from ..core.coords import INVALID_KEY, pack_coords, sort_keys, unpack_keys
-from ..core.memory import max_capacity_for_budget
+from ..core.memory import (
+    device_budget_bytes,
+    estimate_forward_hbm,
+    footprint_terms,
+    max_capacity_for_budget,
+)
 from ..core.plan import build_plan
 from ..core.sparse_ops import ConvConfig
 from ..core.sparse_tensor import SparseVoxelTensor
 from ..data.cloud import Cloud
-from ..data.dataset import BlockTiler, stage_rows
+from ..data.dataset import BlockTiler, halve_batch, stage_rows
 from ..device import resolve_device
 from ..nn.convert import load_model, load_weights
+
+log = logging.getLogger(__name__)
 
 
 def compress_preds(preds: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -151,7 +174,7 @@ class ModelInference:
         num_workers: int = 0,  # reference-config compatibility (unused)
         level_capacity_factor: float = 0.5,
         max_in_flight: int = 2,
-        hbm_budget_bytes: int = 12 << 30,
+        hbm_budget_bytes: int | None = None,
         compact_transfers: bool = True,
         upload_granularity: int = 4096,
         medial_classes: Sequence[int] | None = None,
@@ -184,7 +207,8 @@ class ModelInference:
         self.fused = fused
         self.level_capacity_factor = level_capacity_factor
         self.max_in_flight = max_in_flight
-        self.hbm_budget_bytes = hbm_budget_bytes
+        self.hbm_budget_bytes = (device_budget_bytes(self.devices) if hbm_budget_bytes is None
+                                 else hbm_budget_bytes)
         self.compact_transfers = compact_transfers
         self.upload_granularity = upload_granularity
         self.model = load_model(load_weights(weights_path), self.device)
@@ -193,13 +217,17 @@ class ModelInference:
         # 'local' models divide residuals by the voxel size and keep fp16
         self.res_dtype = np.float16 if self.feature_mode == "local" else np.int8
         # the largest pow2 batch capacity whose estimated forward peak fits
-        # the budget at factor 1.0 (the overflow-retry worst case) with
-        # max_in_flight batches queued, as in the JAX package
+        # the budget at factor 1.0 (every level as large as the batch) with
+        # max_in_flight batches queued, as in the JAX package; on a card the
+        # model counts the port's own footprint terms. An overflow rerun's
+        # levels can be larger still: `_rerun` holds them to the same budget
+        self.footprint_terms = footprint_terms(self.devices)
         self.max_batch_capacity = max_capacity_for_budget(
-            hbm_budget_bytes,
+            self.hbm_budget_bytes,
             self.model.unet_planes,
             factor=1.0,
             in_flight=max(1, max_in_flight),
+            **self.footprint_terms,
         )
         # running totals of the bytes each forward moved over the link; the
         # caller reads and resets them
@@ -286,27 +314,58 @@ class ModelInference:
             out.append(cap2)
         return tuple(out)
 
-    def _retry(self, counts, caps, attempt: int):
-        """None when no level overflowed, else the level capacities of the
-        rerun; raises when the overflow persists."""
+    def _rerun_caps(self, capacity: int, counts, caps):
+        """The level capacities of an overflowed batch's rerun, held to the
+        budget as the plan is (the model's peak with max_in_flight batches
+        in flight): the JAX package's `_retry_caps` where they fit, else
+        each level's count rounded up to a power of two (exact down to the
+        first overflowed level, so that a later level's overflow is left to
+        the next rerun). (level capacities, whether they fit)."""
+        tight = tuple(1 << max(8, int(c - 1).bit_length()) for c in np.asarray(counts))
+        for level_caps in (self._retry_caps(counts, caps), tight):
+            est = estimate_forward_hbm(
+                capacity, self.model.unet_planes, in_flight=max(1, self.max_in_flight),
+                level_caps=level_caps, **self.footprint_terms)
+            if est["peak"] <= self.hbm_budget_bytes:
+                return level_caps, True
+        return tight, False
+
+    def _rerun(self, vb, counts, caps, attempt: int, run, collect, sinks) -> bool:
+        """False when no level of the batch overflowed. Else the batch is
+        rerun through `run` and `collect` into the sinks at `_rerun_caps`,
+        or, where those do not fit the budget, as two halves of its blocks,
+        each planned afresh; a single block that does not fit reruns at the
+        counts' capacities past the budget, with a warning. Raises when the
+        overflow persists."""
         counts = np.asarray(counts)
         if not bool(np.any(counts > np.asarray(caps))):
-            return None
+            return False
         if attempt >= len(self.model.unet_planes):
             raise RuntimeError(
                 f"UNet level buffer overflow persists after {attempt} "
                 f"counts-driven retries (counts {counts} vs capacities {caps})"
             )
-        return self._retry_caps(counts, caps)
+        level_caps, fits = self._rerun_caps(len(vb.coords), counts, caps)
+        halves = None if fits else halve_batch(vb)
+        if halves is None:
+            if not fits:
+                log.warning(
+                    "the rerun of a one-block batch of capacity %d at level capacities %s "
+                    "passes the budget of %d bytes in the footprint model",
+                    len(vb.coords), level_caps, self.hbm_budget_bytes)
+            collect(vb, run(vb, level_caps=level_caps), sinks, attempt + 1)
+            return True
+        for half in halves:
+            collect(half, run(half), sinks)
+        return True
 
     def _collect(self, vb, out, sinks, attempt: int = 0):
         """Read one full-download batch into the sinks (xyzrgb, radius,
         direction, class logits), rerunning it if a level overflowed."""
         fetch, caps = out
         counts, order, active, radius, direction, logits = fetch.get()
-        retry = self._retry(counts, caps, attempt)
-        if retry is not None:
-            return self._collect(vb, self._run_batch(vb, level_caps=retry), sinks, attempt + 1)
+        if self._rerun(vb, counts, caps, attempt, self._run_batch, self._collect, sinks):
+            return
         keep = active & vb.mask[order]
         out_xyzrgb, out_radius, out_dir, out_class = sinks
         out_xyzrgb.append(vb.feats[order[keep]][:, :6])
@@ -366,10 +425,9 @@ class ModelInference:
         class), rerunning it if a level overflowed."""
         fetch, caps = out
         counts, radius, direction, class_l = fetch.get()
-        retry = self._retry(counts, caps, attempt)
-        if retry is not None:
-            out = self._run_batch_compact(vb, level_caps=retry)
-            return self._collect_compact(vb, out, sinks, attempt + 1)
+        if self._rerun(vb, counts, caps, attempt, self._run_batch_compact,
+                       self._collect_compact, sinks):
+            return
         _, order, n_act = vb.key_order()
         order = order[:n_act]              # active rows are the sorted prefix
         keep = vb.mask[order]
@@ -421,10 +479,9 @@ class ModelInference:
         small, caps, (cls_p, rad_p, dir_p) = out
         (vals,) = small.get()
         counts, m = vals[:-1], int(vals[-1])
-        retry = self._retry(counts, caps, attempt)
-        if retry is not None:
-            out = self._run_batch_culled(vb, level_caps=retry)
-            return self._collect_culled(vb, out, sinks, attempt + 1)
+        if self._rerun(vb, counts, caps, attempt, self._run_batch_culled,
+                       self._collect_culled, sinks):
+            return
         _, order, n_act = vb.key_order()
         keep = vb.mask[order[:n_act]]       # the device's keep_i over active rows
         rows = order[:n_act][keep]          # original rows, sorted order

@@ -44,7 +44,6 @@ def _forwards(pkg: str) -> dict:
     out = {}
     for mode, kw in MODES.items():
         mi = inf.ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
-        mi.max_batch_capacity = min(mi.max_batch_capacity, 262144)
         mi.forward(cloud)
         mi.forward(cloud)
         out[mode] = (mi, cloud)

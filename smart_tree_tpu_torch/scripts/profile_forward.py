@@ -5,7 +5,7 @@
 
 The bench tree and model configuration are chip_smoke.py's (generate_tree
 seed 0, 12 m, 12000 points/m2, 20000 foliage points, noble-elevator-58,
-bf16, batch capacity <= 262144). The default path is the default
+bf16, batches sized by `ModelInference`). The default path is the default
 configuration's: compact transfers with the download cull to
 `medial_classes=[0]`; `--full` profiles `compact_transfers=False`. After one
 warm-up forward it prints one JSON line with:
@@ -42,7 +42,6 @@ from ..infer.inference import ModelInference
 WEIGHTS = Path(__file__).resolve().parents[2] / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
 BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
-MAX_BATCH_CAPACITY = 262144
 
 
 class NumpyTiler(BlockTiler):
@@ -92,7 +91,6 @@ def main(argv=None) -> int:
     cloud = CentreCloud()(generate_tree(**BENCH_TREE)[0])
     mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16",
                         compact_transfers=not args.full, medial_classes=[0])
-    mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
     if args.full:
         run, collect = mi._run_batch, mi._collect
     else:

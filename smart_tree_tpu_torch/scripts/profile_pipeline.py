@@ -5,7 +5,7 @@ skeleton PLYs out.
 
 The bench tree and model configuration are chip_smoke.py's (generate_tree
 seed 0, 12 m, 12000 points/m2, 20000 foliage points, noble-elevator-58,
-bf16, batch capacity <= 262144); everything else is the default pipeline
+bf16); everything else, batch sizing included, is the default pipeline
 configuration (`utils.configs.DEFAULT_PIPELINE`), saving into a temporary
 directory. After one warm-up run it prints one JSON line with:
   - the seconds of each stage of one run (inference, outlier filter, reduce,
@@ -36,7 +36,6 @@ from ..utils.configs import default_pipeline_config, instantiate
 WEIGHTS = Path(__file__).resolve().parents[2] / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
 BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
-MAX_BATCH_CAPACITY = 262144
 STAGES = ("inference_s", "upload_s", "outlier_filter_s", "reduce_s", "knn_graph_s",
           "table_shortcuts_s", "components_s", "sssp_s", "tracer_s", "post_process_s",
           "save_s")
@@ -50,10 +49,7 @@ def bench_pipeline(save_path, precision: str = "bfloat16", device: str | None = 
     if device is not None:
         cfg["model_inference"]["device"] = device
         cfg["skeletonizer"]["device"] = device
-    pipeline = instantiate(cfg)
-    mi = pipeline.model_inference
-    mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
-    return pipeline
+    return instantiate(cfg)
 
 
 def process_raising_hop_cap(pipeline, cloud, stats: dict | None = None):

@@ -4,7 +4,9 @@ tens of metres, through the block-tiled bf16 forward with the download
 culled to the branch class, and optionally the multi-component skeleton
 stage. Reports points/s and trees/min as the JAX tool does, plus the peak
 device memory, the skeleton stage's seconds and counts, the reduced graph's
-vertex count and the route its KNN took.
+vertex count and the route its KNN took. Batches are as large as
+`ModelInference` sizes them for the device; the JAX tool's 131,072-voxel
+ceiling served its TPU host's compile helper, which the port does not have.
 
     python -m smart_tree_tpu_torch.tools.bench_scan [--trees 6] [--points-per-m2 8000] [--skeletonize]
 
@@ -31,9 +33,6 @@ from ..skeleton.graph import GRID_KNN_THRESHOLD
 from ..skeleton.skeletonize import Skeletonizer
 
 WEIGHTS = Path(__file__).resolve().parents[2] / "smart_tree_tpu/weights/noble-elevator-58.npz"
-# the JAX tool's batch ceiling: at millions of points the batch count, not
-# the batch size, amortises the per-batch costs
-MAX_BATCH_CAPACITY = 131072
 
 
 def make_forest(n_trees: int, points_per_m2: float, seed: int = 0) -> Cloud:
@@ -70,7 +69,6 @@ def scan(cloud: Cloud, n_trees: int, weights=WEIGHTS, skeletonize: bool = False,
     synchronise. `precision` is the tool's bf16 unless a caller asks for
     fp32, as the CPU parity test against the JAX package does."""
     mi = ModelInference(weights, precision=precision, medial_classes=(0,), device=device)
-    mi.max_batch_capacity = min(mi.max_batch_capacity, MAX_BATCH_CAPACITY)
     dev = mi.device
     n = len(cloud)
     t0 = time.perf_counter()
