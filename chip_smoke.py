@@ -8,16 +8,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      TF32 off;
-  3. kernels: on the plans of the bench tree's batches, hold the slab
-     kernel against its plain version at every (Cin, Cout) the bf16 forward
-     gives it, and the fused kernel at every (K3, Cin, Cout) the fp32
-     fused=True forward gives it, each at its tallest rulebook; launch each
-     twice on one input and require equal bits; time each with CUDA events
-     (through the wrapper, `ms`, and as the bare launch, `kernel_ms`) beside
-     the plain version, the gather + torch.matmul composition (library_ms)
-     and the least time the card could take;
+  3. kernels: (a) on the exact plans of the bench tree's batches, hold the
+     slab kernel against its plain version at every (Cin, Cout) the bf16
+     forward gives it, and the fused kernel at every (K3, Cin, Cout) the
+     fp32 fused=True forward gives it, each at its tallest rulebook; launch
+     each twice on one input and require equal bits; time each with CUDA
+     events (through the wrapper, `ms`, and as the bare launch,
+     `kernel_ms`) beside the plain version, the gather + torch.matmul
+     composition (library_ms) and the least time the card could take; (b)
+     the dispatch crossover (`dispatch_crossover`): at each (Cin, Cout), the
+     tallest rulebook tiled to every row count of CROSSOVER_ROWS (37 to the
+     card's largest batch, ragged ones among them), B1 against route 3 at
+     bf16 and B2 against route 3 at fp32 (tables to 4x the TPU's 8 MiB),
+     medians of 20 event-timed calls after 3 warm-ups, each kernel held
+     against its plain version at every count; a `{"dispatch": ...}` line
+     (the row thresholds of core/sparse_ops.py and core/fused_conv.py are
+     set from it);
   4. bf16 forward of the bench tree (generate_tree seed 0, 12 m,
-     noble-elevator-58, batches sized by ModelInference): one warm-up, counts
+     noble-elevator-58, batches sized by ModelInference, one exact plan a
+     batch): one warm-up, counts
      reset, three timed forwards; the slab kernel must have launched; then
      one more forward under torch.profiler for the slab kernel's summed
      device time and launches inside one forward;
@@ -62,8 +71,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      at max_in_flight 1 and 2 (equal clouds) with the bytes it moved; culled
      against compact exact (non-medial rows exactly 0), compact against the
      full download at the JAX package's own bounds; the slab kernel must
-     have launched in both compact modes, and both kernels in a culled
-     forward with fused=True;
+     have launched in both compact modes; a culled fp32 forward with
+     fused=True must launch the fused kernel alone and agree with the plain
+     culled fp32 forward (at bf16 the slab kernel, faster at every row
+     count, takes every 27-column conv before the fused kernel's route);
  15. several devices on the one card: the bench tree's bf16 forward over two
      replicas on cuda:0 (ModelInference(devices=["cuda:0", "cuda:0"]),
      culled and with the full download) must return the rows of the
@@ -72,8 +83,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the card and on the CPU (held against each other, the ranks'
      parameters equal bit for bit) and in a one-rank NCCL group (held
      against phase 12); a `{"parallel": ...}` line;
- 16. the modules ported last: (a) on the bench tree's batches (the plans
-     the bf16 forward settles on) the sorted-lookup `strided_rulebook` and
+ 16. the modules ported last: (a) on the bench tree's batches (the exact
+     plans the bf16 forward runs) the sorted-lookup `strided_rulebook` and
      `inverse_rulebook` equal the plan's strided and inverse rulebooks entry
      for entry, and `subm_rulebook9` on the card equals the CPU's; (b) every
      subm conv of one fp32 forward on z9 plans (build_plan(subm_mode="z9"))
@@ -83,8 +94,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (FP32_UNIT's summation bound) and the whole forward within
      Z9_SPREAD_FACTOR of the full plan's own kernel spread; the slab kernel
      launched by the
-     z9 bf16 forward exactly for its strided and inverse convs past the row
-     threshold (never for a subm conv); both plans' forwards timed at both
+     z9 bf16 forward exactly for its strided and inverse convs (never for a
+     subm conv); both plans' forwards timed at both
      precisions (CUDA events, median of 5 after a warm-up); (d)
      connect_skeletons on phase 8's skeletons (at the default 0.5 m and at
      any distance, which grafts them all), sssp from one root and
@@ -131,40 +142,52 @@ Phases, each fatal on failure (exit code != 0, no result line):
      device_step_s, clouds_per_min_e2e and slab_launches_per_forward above
      0, and the bench tree's 356,709 points; (b) the supervisor with `--tiny
      --fault raise`: a non-zero exit and one JSON line carrying `error`; (c)
-     the roofline (smart_tree_tpu_torch/tools/roofline.py) of (a)'s batch
-     capacities: the forward's FLOPs and bytes and their shares of the
+     the roofline (smart_tree_tpu_torch/tools/roofline.py) of (a)'s batches'
+     exact level rows: the forward's FLOPs and bytes and their shares of the
      card's peaks at (a)'s device time, printed, not gated; a `{"bench": ...}`
      line.
  20. the batch sizing at the card's budget (core/memory.py): (a) the card's
      total memory, the budget (0.75 of it) and ModelInference's largest batch
      capacity at max_in_flight 1 and 2, fp32 and bf16; (b) at every pow2
      capacity from 65,536 to that largest one, a batch of four synthetic
-     blocks (SIZING_*) in each layout, dense layers through the culled
-     forward at fp32 and bf16, level_capacity_factor 1.0 and 0.5, random
-     voxels at fp32 1.0 and bf16 0.5; then at factor 0.5, fp32 and bf16, the
+     blocks (SIZING_*) in each layout, dense layers and random voxels,
+     through the culled forward at fp32 and bf16; then at fp32 and bf16 the
      bench tree's batches and the forest's densest blocks' batches alone,
-     which rerun; then random blocks under a budget sized for their batch,
-     which the reruns do not fit, so that the batch splits. In each, reruns
-     and splits included, the peak bytes allocated must not pass the
-     footprint model with the card's terms before its 1.5x headroom at the
-     largest run made (their ratio is printed), every run's model as the
-     plan charges it must fit the budget, and at the largest capacity every
-     route-3 gather of the layers must chunk as ConvConfig.chunked says; (c)
-     a cloud of two layered batches at the largest capacity with two in
-     flight, within the budget and the model; (d) the slab kernel on level 0
-     of the largest batch at each (Cin, Cout) it takes there, against its
-     plain version at SLAB_ATOL and timed as in 3; (e) fp32 predictions
-     under the card's plan against a second ModelInference held to the old
-     262,144 ceiling, on the bench tree, on the forest's first 16 blocks
-     and on four dense blocks that the old ceiling splits into four
-     batches, within MODEL_TOL, with the class agreement; a `{"sizing":
-     ...}` line.
+     one UNet pass each; then random blocks under a budget sized for their
+     batch, which their exact plan passes, so that the batch splits before
+     it runs. In each, splits included, the peak bytes allocated must not
+     pass the footprint model with the card's terms before its 1.5x headroom
+     at the exact level rows of the largest plan run (their ratio is
+     printed), every pass's model as the plan charges it must fit the
+     budget, and at the largest capacity every route-3 gather of the layers
+     must chunk as ConvConfig.chunked says; (c) a cloud of two layered
+     batches at the largest capacity with two in flight, within the budget
+     and the model; (d) the slab kernel on level 0 of the largest batch at
+     each (Cin, Cout) it takes there, against its plain version at SLAB_ATOL
+     and timed as in 3; (e) the card's plan against the old 262,144
+     ceiling: the same batches on the bench tree and the forest's first 16
+     blocks (no forward), and on four dense blocks that the old ceiling
+     splits into four batches fp32 predictions within MODEL_TOL, with the
+     class agreement; a `{"sizing": ...}` line.
+ 21. exact plans (`exact_plan_phase`): (a) the bench tree at bf16 in the
+     full, compact and culled modes: one UNet pass a batch, every plan
+     tensor at its level's exact count (`checked_unet`), B1 launches a
+     forward, seconds (median of 5), the device-busy share of one profiled
+     forward, the peak allocated bytes held against the footprint model at
+     the exact counts; (b) at fp32 each bench batch's exact plan against
+     static plans at capacities that do not overflow (the trainer's form),
+     route 3 on every conv, within MODEL_TOL; (c) the bf16 classes against
+     fp32's (at least 99 % equal); (d) fp32 card against CPU on the small
+     tree; (e) the forest's densest blocks, one pass a batch, beside phase
+     17's whole forest scan (its passes a forward equal its batches); an
+     `{"exact_plans": ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
-parallel phase's, the last modules', the tools', the probes', the bench's
-and the sizing's numbers, and as the last line {"ok": true, "device": {...}}.
+parallel phase's, the last modules', the tools', the probes', the bench's,
+the sizing's, the dispatch crossover's and the exact plans' numbers, and as
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -296,12 +319,8 @@ BENCH_TIMEOUT_S = 600
 # SIZING_LAYER_VOXELS apart (dense surfaces: each level some 4x smaller than
 # the one above), and "random", voxels drawn at random through the cube
 # (some 3 outputs a voxel at the stride-2 convs, so levels grow past the
-# batch capacity and every batch reruns)
+# batch capacity: the exact plans' worst case)
 SIZING_MIN_CAPACITY = 65536
-# the (precision, factor) forwards of the random layout: the plan's worst
-# case and the default configuration's (the peaks of fp32 and bf16 are
-# equal there: the activations are fp32 in both)
-SIZING_RANDOM_RUNS = (("float32", 1.0), ("bfloat16", 0.5))
 SIZING_FILL = 0.7
 SIZING_SIDE = 360
 SIZING_LAYER_VOXELS = 10
@@ -311,8 +330,15 @@ SIZING_ANCHOR = -0.45
 # helper), set on a second ModelInference in (e) only, to compare plans
 OLD_CEILING = 262144
 FOREST_COMPARE_BLOCKS = 16
-# the forest's densest blocks, whose batches run alone at factor 0.5 in (b)
+# the forest's densest blocks, whose batches run alone in phases 20 (b) and 21
 FOREST_DENSE_BLOCKS = 8
+# phase 3 (b), the dispatch crossover: the row counts each (Cin, Cout) is
+# timed at (ragged ones, and two under the 128-row tile), up to the card's
+# largest batch; B2 while its table holds at most 4x the TPU kernel's 8 MiB
+# VMEM gate; the plain versions checked CROSSOVER_CHECK_ROWS rows at a time
+CROSSOVER_ROWS = (37, 100, 256, 1001, 4096, 16411, 65536, 262147, 1048576, 4194304)
+CROSSOVER_TABLE_BYTES = 32 << 20
+CROSSOVER_CHECK_ROWS = 262144
 
 
 T_START = time.perf_counter()
@@ -576,16 +602,21 @@ def transfer_phase(torch, np, cloud, card):
     if agree < 0.99 or rel >= 0.02:
         raise AssertionError(f"compact vs full: class agreement {agree}, median rel radius {rel}")
 
-    # the culled forward with fused=True: B1 on the tall convs, B2 on the rest
-    fused = make(medial_classes=[0], fused=True)
-    fused.forward(cloud)  # warm-up
+    # the culled fp32 forward with fused=True (B2 on every conv it takes,
+    # route 3 on the rest) against the plain culled fp32 forward
+    fused, plain = (ModelInference(WEIGHTS, batch_size=4, precision="float32",
+                                   medial_classes=[0], fused=f) for f in (True, False))
+    for mi in (fused, plain):
+        mi.forward(cloud)  # warm-up
     out_f, fused_s, slab_f, fused_n, _ = counted_forward(fused)
-    if slab_f == 0 or fused_n == 0:
-        raise AssertionError(f"culled fused forward: {slab_f} slab, {fused_n} fused launches")
-    np.testing.assert_array_equal(out_f.xyz, culled.xyz)
-    agree_fused = float((out_f.class_l == culled.class_l).mean())
+    out_p = plain.forward(cloud)
+    if slab_f != 0 or fused_n == 0:
+        raise AssertionError(f"culled fp32 fused forward: {slab_f} slab, {fused_n} fused "
+                             "launches")
+    np.testing.assert_array_equal(out_f.xyz, out_p.xyz)
+    agree_fused = float((out_f.class_l == out_p.class_l).mean())
     if agree_fused < 0.99:
-        raise AssertionError(f"culled fused vs culled: class agreement {agree_fused}")
+        raise AssertionError(f"culled fused vs culled, fp32: class agreement {agree_fused}")
     result = {
         "card": card, "points": len(cloud), "blocks": len(tiler.blocks),
         "host_dedup": {"tiling_native_s": tiling_native_s, "tiling_numpy_s": tiling_numpy_s,
@@ -710,10 +741,26 @@ def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
     log(f"parallel: {result}")
     return result, multi_launches
 
-def median_ms(torch, fn, repeats: int = 5) -> float:
-    """Median milliseconds of `repeats` calls after one warm-up, each call
-    timed by CUDA events."""
-    fn()
+def on_route3(sparse_ops, fn):
+    """fn() with the slab kernel's wrapper swapped for route 3 at bf16 (the
+    gather and matmul of the same rounded operands), so that every conv of
+    a bf16 forward takes route 3; the wrapper is restored after."""
+    slab = sparse_ops.slab_conv.slab_gather_conv
+    cfg = sparse_ops.ConvConfig("bfloat16")
+    sparse_ops.slab_conv.slab_gather_conv = lambda f, rb, w: sparse_ops._gather_gemm(
+        f, rb, w, cfg, cfg.chunked(rb.shape[0], w.shape[0] * w.shape[1]))
+    try:
+        return fn()
+    finally:
+        sparse_ops.slab_conv.slab_gather_conv = slab
+
+
+def median_ms(torch, fn, repeats: int = 5, warmup: int = 1) -> float:
+    """Median milliseconds of `repeats` calls after `warmup`, each call timed
+    by its own pair of CUDA events (host launch gaps included, as a caller
+    sees them)."""
+    for _ in range(warmup):
+        fn()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -735,27 +782,15 @@ def z9_phase(torch, np, mi16, batches):
     from smart_tree_tpu_torch.core import rulebook as rbm
     from smart_tree_tpu_torch.core import slab_conv, sparse_ops
     from smart_tree_tpu_torch.core.sparse_ops import ConvConfig, gather_conv
-    from smart_tree_tpu_torch.infer.inference import ModelInference
 
     model = mi16.model
     planes = model.unet_planes
-    # the plans the bf16 forward settles on (overflow reruns included) and
-    # their level capacities, which the z9 plans take too
-    settled = []
-    for vb in batches:
-        level_caps = None
-        while True:
-            x, plan, _ = mi16._plan_batch(vb, level_caps)
-            counts = [int(lv.count) for lv in plan.levels]
-            caps = [lv.keys.shape[0] for lv in plan.levels]
-            if all(c <= k for c, k in zip(counts, caps)):
-                break
-            level_caps = ModelInference._retry_caps(counts, caps)
-        settled.append((x, tuple(caps), plan))
+    # the exact plans the bf16 forward runs; the z9 plans are exact too
+    settled = [(x, plan) for x, plan, _ in (mi16._plan_batch(vb) for vb in batches)]
 
     # (a) rulebooks
     checked = 0
-    for x, _, plan in settled:
+    for x, plan in settled:
         for lvl, lv in enumerate(plan.levels):
             rb9 = rbm.subm_rulebook9(lv.keys, lv.spatial_shape, plan.batch_size)
             rb9_cpu = rbm.subm_rulebook9(lv.keys.cpu(), lv.spatial_shape, plan.batch_size)
@@ -775,8 +810,8 @@ def z9_phase(torch, np, mi16, batches):
                 checked += 2
 
     def plans(mode):
-        return [(x, model.build_plan(x, level_capacities=caps, subm_mode=mode))
-                for x, caps, _ in settled]
+        return [(x, model.build_plan(x, level_capacity_factor=None, subm_mode=mode))
+                for x, _ in settled]
 
     z9_plans, full_plans = plans("z9"), plans("full")
     full_rb = {id(zl.subm_rb): fl.subm_rb
@@ -785,8 +820,7 @@ def z9_phase(torch, np, mi16, batches):
 
     def forward(pairs, precision):
         with torch.no_grad():
-            return [model(p, x.feats, ConvConfig(precision, cap_hint=x.capacity))
-                    for x, p in pairs]
+            return [model(p, x.feats, ConvConfig(precision)) for x, p in pairs]
 
     # (b) and the bf16 per-conv check: every subm conv of a z9 forward held
     # on its own inputs against the full rulebook's conv (these comparison
@@ -819,11 +853,10 @@ def z9_phase(torch, np, mi16, batches):
                 for mode, pairs in (("z9", z9_plans), ("full", full_plans))}
     finally:
         sparse_ops._gather_conv_z = zconv
-    # the yardstick: the full plans at bf16 with no slab kernel (a row
-    # threshold past every rulebook)
+    # the yardstick: the full plans at bf16 with every conv on route 3
     with torch.no_grad():
-        spread_ref = [model(p, x.feats, ConvConfig("bfloat16", cap_hint=1 << 40))
-                      for x, p in full_plans]
+        spread_ref = on_route3(sparse_ops, lambda: [model(p, x.feats, ConvConfig("bfloat16"))
+                                                    for x, p in full_plans])
     subm_per_forward = len(per_conv["float32"])
     if subm_per_forward != sum(1 for _, p in z9_plans for c in unet_convs(p, planes)
                                if ".Head." in c[0] or ".Tail." in c[0]):
@@ -863,16 +896,11 @@ def z9_phase(torch, np, mi16, batches):
                              f"the full plan's own {spread_agree}")
 
     # the slab kernel's launches in one bf16 forward on each plan, against the
-    # count the plans imply: every 27-column conv past the row threshold, on
-    # the z9 plans only the strided (Encode) and inverse (Decode) ones
+    # count the plans imply: every 27-column conv, on the z9 plans only the
+    # strided (Encode) and inverse (Decode) ones
     def expected(pairs, subm_too):
-        n = 0
-        for x, p in pairs:
-            smin = ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
-            for name, rb, *_ in unet_convs(p, planes):
-                strided = name.endswith(("Encode", "Decode"))
-                n += int((strided or subm_too) and rb.shape[0] >= smin)
-        return n
+        return sum(int(subm_too or name.endswith(("Encode", "Decode")))
+                   for _, p in pairs for name, *_ in unet_convs(p, planes))
 
     launches = {}
     for mode, pairs in (("z9", z9_plans), ("full", full_plans)):
@@ -888,8 +916,8 @@ def z9_phase(torch, np, mi16, batches):
     times = {}
     for mode in ("z9", "full"):
         times[f"{mode}_plan_ms"] = median_ms(
-            torch, lambda: [model.build_plan(x, level_capacities=caps, subm_mode=mode)
-                            for x, caps, _ in settled])
+            torch, lambda: [model.build_plan(x, level_capacity_factor=None, subm_mode=mode)
+                            for x, _ in settled])
         for prec in ("float32", "bfloat16"):
             pairs = z9_plans if mode == "z9" else full_plans
             times[f"{mode}_{prec}_forward_ms"] = median_ms(torch, lambda: forward(pairs, prec))
@@ -1201,6 +1229,9 @@ def tools_phase(torch, np, card):
     forest_launches = slab_conv.slab_gather_conv.launches
     if forest_launches == 0:
         raise AssertionError("the forest scan never launched the slab kernel")
+    if report["unet_passes"] != n_batches:
+        raise AssertionError(f"forest scan: {report['unet_passes']} UNet passes a forward for "
+                             f"{n_batches} batches")
     for k in ("xyz", "medial_vector", "class_l"):
         if not np.isfinite(getattr(lc, k)).all():
             raise AssertionError(f"forest scan: non-finite {k}")
@@ -1340,9 +1371,9 @@ def bench_phase(card):
     """Phase 19: (a) the port's bench at its shipped defaults on the card,
     its line held to the harness's contract; (b) the supervisor with an
     injected fault must exit non-zero with one JSON line carrying `error`;
-    (c) the roofline's whole-forward FLOPs and bytes at (a)'s batch
-    capacities against its device time, printed, not gated. Returns the
-    phase's line."""
+    (c) the roofline's whole-forward FLOPs and bytes at (a)'s batches'
+    exact level rows against its device time, printed, not gated. Returns
+    the phase's line."""
     t0 = time.perf_counter()
     rc, lines = run_bench_cli()
     bench = json.loads(lines[-1])
@@ -1366,10 +1397,13 @@ def bench_phase(card):
     if sum(ln.lstrip().startswith("{") for ln in fault_lines) != 1:
         raise AssertionError(f"bench --fault raise printed other JSON lines: {fault_lines}")
 
-    total = roofline.forward_totals(bench["batch_capacities"], factor=0.5,
+    if len(bench.get("batch_level_rows") or ()) != len(bench["batch_capacities"]):
+        raise AssertionError(f"the bench's level rows {bench.get('batch_level_rows')} are not "
+                             f"one exact plan a batch of {bench['batch_capacities']}")
+    total = roofline.forward_totals([tuple(r) for r in bench["batch_level_rows"]],
                                     itemsize=roofline.ITEMSIZE["bfloat16"])
     shares = roofline.achieved(total, bench["device_step_s"], "bfloat16")
-    log(f"roofline of one forward at {bench['batch_capacities']}: {total}, {shares}")
+    log(f"roofline of one forward at {bench['batch_level_rows']}: {total}, {shares}")
     return {"card": card, "bench": bench, "bench_s": bench_s,
             "fault_rc": fault_rc, "fault_error": fault_line["error"],
             "roofline": {**total, **shares, "precision": "bfloat16",
@@ -1412,16 +1446,18 @@ def sizing_phase(torch, np, card):
     """Phase 20: the batch sizing at the card's budget. (a) the budget and
     the largest batch capacity ModelInference plans; (b) at every pow2
     capacity from SIZING_MIN_CAPACITY to it, culled forwards of a batch of
-    four blocks in each layout (layers at fp32 and bf16, factor 1.0 and 0.5;
-    random at SIZING_RANDOM_RUNS), then real batches that rerun and a
-    batch that splits: each peak allocated held against the footprint model
-    (core/memory.py) at the largest run made, and route 3's gathers at the
-    largest capacity against `ConvConfig.chunked`; (c) a cloud of two layered
-    batches at the largest
+    four blocks in each layout at fp32 and bf16, then the bench tree's and
+    the forest's densest blocks' batches alone, one exact plan each, and a
+    batch whose exact plan passes a budget sized for its capacity, which
+    splits before it runs: each peak allocated held against the footprint
+    model (core/memory.py) at the exact level rows of the largest plan run,
+    and route 3's gathers at the largest capacity against
+    `ConvConfig.chunked`; (c) a cloud of two layered batches at the largest
     capacity, max_in_flight 2, within the budget; (d) the slab kernel on
     level 0 of the largest batch against its plain version, timed; (e) the
-    card's plan against the old 262,144 ceiling at fp32 on the bench tree,
-    the forest's first blocks and four dense blocks. Returns the phase's line
+    card's plan against the old 262,144 ceiling: equal batches on the bench
+    tree and the forest's first blocks, and at fp32 equal predictions on
+    four dense blocks that the old ceiling splits. Returns the phase's line
     and (d)'s rows."""
     from smart_tree_tpu_torch.core import slab_conv, sparse_ops
     from smart_tree_tpu_torch.core.memory import estimate_forward_hbm, footprint_terms
@@ -1435,14 +1471,13 @@ def sizing_phase(torch, np, card):
     dev = torch.device("cuda", 0)
     # (a) the budget and the plan
     total_memory = torch.cuda.get_device_properties(dev).total_memory
-    mis = {(p, f): ModelInference(WEIGHTS, precision=p, level_capacity_factor=f,
-                                  medial_classes=(0,))
-           for p in ("float32", "bfloat16") for f in (1.0, 0.5)}
-    budget = mis["float32", 1.0].hbm_budget_bytes
-    planes = mis["float32", 1.0].model.unet_planes
+    mis = {p: ModelInference(WEIGHTS, precision=p, medial_classes=(0,))
+           for p in ("float32", "bfloat16")}
+    budget = mis["float32"].hbm_budget_bytes
+    planes = mis["float32"].model.unet_planes
     plan = {f"{p}_in_flight{k}": ModelInference(WEIGHTS, precision=p, max_in_flight=k)
             .max_batch_capacity for p in ("float32", "bfloat16") for k in (1, 2)}
-    max_cap = mis["float32", 1.0].max_batch_capacity
+    max_cap = mis["float32"].max_batch_capacity
     terms = footprint_terms([dev])   # the model's terms as ModelInference sizes with them
     result = {"card": card, "total_memory": total_memory, "budget_bytes": budget,
               "max_batch_capacity": plan, "footprint_terms": terms}
@@ -1466,16 +1501,6 @@ def sizing_phase(torch, np, card):
         peak = torch.cuda.max_memory_allocated()
         return peak - base, peak, time.perf_counter() - t0
 
-    def counted_runs(mi):
-        """The calls of mi's culled run half (reruns of an overflowed batch
-        and the halves of a split one among them) as (capacity, level
-        capacities or None), recorded on the instance."""
-        runs = []
-        inner = mi._run_batch_culled
-        mi._run_batch_culled = lambda vb, level_caps=None: (
-            runs.append((len(vb.coords), level_caps)), inner(vb, level_caps))[1]
-        return runs
-
     gathers = []
     route3 = sparse_ops._gather_gemm
 
@@ -1484,39 +1509,37 @@ def sizing_phase(torch, np, card):
         return route3(feats, rulebook, weights, cfg, chunked)
 
     def one_batch(mi, vb):
-        """vb alone through mi's planned culled path (run, collect, reruns)."""
+        """vb alone through mi's culled path (run, collect)."""
+        mi.plan_rows = []
         mi._collect_culled(vb, mi._run_batch_culled(vb), ([], [], [], []))
 
+    def model_peak(rows, t, in_flight=1):
+        return estimate_forward_hbm(rows[0], planes, in_flight=in_flight, level_caps=rows,
+                                    **t)["peak"]
+
     def held(what, mi, fn, batches, **head):
-        """Run fn (mi's forward of `batches` batches, one at a time) and hold
-        its peak against the footprint model before headroom at the largest
-        run it made: a first run at its batch's capacity and mi's factor, a
-        rerun at its level capacities. Every run's model as the plan charges
-        it (max_in_flight batches in flight) must fit mi's budget."""
-        precision, factor = mi.precision, mi.level_capacity_factor
-        runs = counted_runs(mi)
+        """Run fn (mi's forward of `batches` batches) and hold its peak
+        against the footprint model before headroom at the exact level rows
+        of the largest plan it ran (`mi.plan_rows`, one per UNet pass). Every
+        pass's model as the plan charges it (max_in_flight batches in
+        flight) must fit mi's budget."""
         gathers.clear()
         sparse_ops._gather_gemm = recorded_gather_gemm
         try:
             measured, peak, dt = peak_of(fn)
         finally:
             sparse_ops._gather_gemm = route3
-            del mi._run_batch_culled
-
-        def model(t, in_flight=1):
-            return max(estimate_forward_hbm(c, planes, factor, in_flight=in_flight,
-                                            level_caps=lc, **t)["peak"] for c, lc in runs)
-
-        est = model(terms)
-        planned = model(mi.footprint_terms, max(1, mi.max_in_flight))
-        jax_model = model({}) / 1.5   # the JAX package's terms, the CPU's
-        row = {"case": what, **head, "precision": precision, "factor": factor,
+        runs = mi.plan_rows
+        est = max(model_peak(rows, terms) for rows in runs)
+        planned = max(model_peak(rows, mi.footprint_terms, max(1, mi.max_in_flight))
+                      for rows in runs)
+        jax_model = max(model_peak(rows, {}) for rows in runs) / 1.5   # the JAX terms
+        row = {"case": what, **head, "precision": mi.precision,
                "measured_bytes": measured, "allocated_bytes": peak,
                "model_peak_bytes": est, "model_bytes": est / 1.5, "ratio": measured / est * 1.5,
                "jax_model_bytes": jax_model, "jax_ratio": measured / jax_model,
-               "reruns": sum(lc is not None for _, lc in runs),
-               "splits": sum(lc is None for _, lc in runs) - batches,
-               "largest_run": max(runs, key=lambda r: sum(r[1] or (r[0],))),
+               "unet_passes": len(runs), "splits": len(runs) - batches,
+               "largest_plan_rows": list(max(runs, key=sum)),
                "planned_peak_bytes": planned, "budget_bytes": mi.hbm_budget_bytes,
                "route3_gathers": len(gathers),
                "route3_chunked": sum(1 for *_, c in gathers if c),
@@ -1526,17 +1549,17 @@ def sizing_phase(torch, np, card):
         log(f"sizing {row}")
         # held to the model without its headroom: the 1.5x stays a margin
         if measured > est / 1.5:
-            raise AssertionError(f"{what} {head} {precision} factor {factor}: {measured} "
-                                 f"bytes, the model {est / 1.5} before headroom")
+            raise AssertionError(f"{what} {head} {mi.precision}: {measured} bytes, the model "
+                                 f"{est / 1.5} before headroom")
         if planned > mi.hbm_budget_bytes:
-            raise AssertionError(f"{what} {head} {precision} factor {factor}: a run planned at "
-                                 f"{planned} bytes, past the budget {mi.hbm_budget_bytes}")
+            raise AssertionError(f"{what} {head} {mi.precision}: a pass planned at {planned} "
+                                 f"bytes, past the budget {mi.hbm_budget_bytes}")
         return row
 
     # (b) the footprint at each capacity against the model: synthetic
     # batches in both layouts, then the bench tree's batches and the
-    # forest's densest blocks alone, which rerun at factor 0.5, and a batch
-    # whose reruns pass a budget sized for it, which splits
+    # forest's densest blocks alone, and a batch whose exact plan passes a
+    # budget sized for its capacity, which splits
     rows = []
     cap = SIZING_MIN_CAPACITY
     largest = None
@@ -1548,9 +1571,7 @@ def sizing_phase(torch, np, card):
             if len(vb.coords) != cap or vb.n_valid != 4 * voxels:
                 raise AssertionError(f"capacity {cap} {layout}: a batch of {len(vb.coords)} "
                                      f"rows holding {vb.n_valid} voxels, not {4 * voxels}")
-            for key, mi in mis.items():
-                if layout == "random" and key not in SIZING_RANDOM_RUNS:
-                    continue
+            for mi in mis.values():
                 row = held(layout, mi, lambda: mi.forward(cloud), 1, capacity=cap,
                            voxels=4 * voxels)
                 rows.append(row)
@@ -1573,10 +1594,12 @@ def sizing_phase(torch, np, card):
     real += [("forest_dense_blocks", vb) for vb in
              batches_of(forest.filter(np.isin(inverse, dense)), max_cap)]
     for what, vb in real:
-        for precision in ("float32", "bfloat16"):
-            mi = mis[precision, 0.5]
-            rows.append(held(what, mi, lambda: one_batch(mi, vb), 1,
-                             capacity=len(vb.coords), voxels=vb.n_valid))
+        for mi in mis.values():
+            row = held(what, mi, lambda: one_batch(mi, vb), 1,
+                       capacity=len(vb.coords), voxels=vb.n_valid)
+            if row["unet_passes"] != 1:
+                raise AssertionError(f"{what}: a batch took {row['unet_passes']} UNet passes")
+            rows.append(row)
     voxels = int(SIZING_FILL * SIZING_MIN_CAPACITY) // 4
     cloud = dense_blocks(np, 4, voxels, seed=SIZING_MIN_CAPACITY, layout="random")
     small = ModelInference(WEIGHTS, precision="float32", medial_classes=(0,),
@@ -1588,9 +1611,6 @@ def sizing_phase(torch, np, card):
         raise AssertionError(f"the split case planned {small.max_batch_capacity}, split "
                              f"{row['splits']} times")
     rows.append(row)
-    for what in ("bench_tree", "forest_dense_blocks"):
-        if not any(r["reruns"] for r in rows if r["case"] == what):
-            raise AssertionError(f"no batch of the {what} reran at factor 0.5")
     result["footprint"] = rows
     del small, cloud
 
@@ -1600,35 +1620,26 @@ def sizing_phase(torch, np, card):
     caps2 = [len(b.coords) for b in batches_of(cloud, max_cap)]
     if caps2 != [max_cap, max_cap]:
         raise AssertionError(f"two-batch cloud tiled into {caps2}")
-    mi = mis["float32", 1.0]
-    runs = counted_runs(mi)
+    mi = mis["float32"]
     measured, peak, dt = peak_of(lambda: mi.forward(cloud))
-    del mi._run_batch_culled
-    est = estimate_forward_hbm(max_cap, planes, 1.0, in_flight=mi.max_in_flight, **terms)
+    est = max(model_peak(r, terms, mi.max_in_flight) for r in mi.plan_rows)
     result["two_batches"] = {"capacities": caps2, "max_in_flight": mi.max_in_flight,
+                             "plan_rows": mi.plan_rows,
                              "measured_bytes": measured, "allocated_bytes": peak,
-                             "model_peak_bytes": est["peak"], "runs": len(runs),
+                             "model_peak_bytes": est, "unet_passes": len(mi.plan_rows),
                              "seconds": dt}
     log(f"sizing two batches: {result['two_batches']}")
-    if peak > budget or measured > est["peak"] / 1.5:
+    if peak > budget or measured > est / 1.5:
         raise AssertionError(f"two batches in flight: {peak} bytes allocated, budget {budget}, "
-                             f"the model's peak {est['peak']} (with its 1.5x headroom)")
+                             f"the model's peak {est} (with its 1.5x headroom)")
     del cloud
 
-    # (d) the slab kernel on level 0 of the largest batch (bf16, factor 0.5)
-    mi16 = mis["bfloat16", 0.5]
-    level_caps = None
-    while True:
-        x, plan16, _ = mi16._plan_batch(largest, level_caps)
-        counts = [int(lv.count) for lv in plan16.levels]
-        caps = [lv.keys.shape[0] for lv in plan16.levels]
-        if all(c <= k for c, k in zip(counts, caps)):
-            break
-        level_caps = ModelInference._retry_caps(counts, caps)
-    slab_min = sparse_ops.ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
+    # (d) the slab kernel on level 0 of the largest batch's exact plan (bf16)
+    mi16 = mis["bfloat16"]
+    x, plan16, _ = mi16._plan_batch(largest)
     tall = {}
     for name, rb, lvl, cin, cout in unet_convs(plan16, planes):
-        if name.startswith("L0.") and rb.shape[0] >= slab_min and (
+        if name.startswith("L0.") and (
                 (cin, cout) not in tall or rb.shape[0] > tall[cin, cout][1].shape[0]):
             tall[cin, cout] = (name, rb, plan16.levels[lvl].keys.shape[0])
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -1668,43 +1679,325 @@ def sizing_phase(torch, np, card):
         raise AssertionError("no level-0 conv of the largest batch reaches the slab kernel")
     del x, plan16, largest
 
-    # (e) the card's plan against the old ceiling, fp32
+    # (e) the card's plan against the old ceiling: the bench tree and the
+    # forest keep their batches (equal plans, no forward needed); four dense
+    # blocks of a 1,048,576-voxel batch ship one a batch under the old
+    # ceiling, and give the same fp32 predictions
     agreement = {}
     first = np.flatnonzero(block_points > 20)[:FOREST_COMPARE_BLOCKS]   # BlockTiler's order
     forest16 = forest.filter(np.isin(inverse, first))
     del forest, q, inverse
-    # the bench tree and the forest keep their batches under the card's plan;
-    # four dense blocks of a 1,048,576-voxel batch ship one a batch under the
-    # old ceiling
+    for what, cloud in (("bench_tree", bench_tree), ("forest_first_blocks", forest16)):
+        plans = [[len(b.coords) for b in batches_of(cloud, c)] for c in (max_cap, OLD_CEILING)]
+        if plans[0] != plans[1]:
+            raise AssertionError(f"{what}: the card's plan {plans[0]} differs from the old "
+                                 f"ceiling's {plans[1]}")
+        agreement[what] = {"points": len(cloud), "card_plan": plans[0],
+                           "old_ceiling_plan": plans[1]}
     dense_cap = min(max_cap, 1 << 20)
-    for what, cloud in (("bench_tree", bench_tree),
-                        ("forest_first_blocks", forest16),
-                        ("dense_blocks", dense_blocks(np, 4, int(SIZING_FILL * dense_cap) // 4,
-                                                      seed=3))):
-        card_mi = ModelInference(WEIGHTS, precision="float32")
-        old_mi = ModelInference(WEIGHTS, precision="float32")
-        old_mi.max_batch_capacity = OLD_CEILING
-        outs, plans = [], []
-        for mi in (card_mi, old_mi):
-            plans.append([len(b.coords) for b in batches_of(cloud, mi.max_batch_capacity)])
-            out = mi.predict(cloud)
-            order = np.lexsort(np.concatenate([out["xyz"], out["rgb"]], axis=1).T)
-            outs.append({k: v[order] for k, v in out.items()})
-        got, ref = outs
-        np.testing.assert_array_equal(got["xyz"], ref["xyz"])
-        for k in ("radius", "direction", "class_logits"):
-            np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=f"{what} {k}")
-        agree = float((got["class_logits"].argmax(1) == ref["class_logits"].argmax(1)).mean())
-        agreement[what] = {"points": len(cloud), "voxels": len(got["xyz"]),
-                           "card_plan": plans[0], "old_ceiling_plan": plans[1],
-                           "class_agreement": agree}
-        log(f"sizing {what}: card plan {plans[0]}, old ceiling {plans[1]}, "
-            f"class agreement {agree}")
-    if agreement["dense_blocks"]["card_plan"] == agreement["dense_blocks"]["old_ceiling_plan"]:
+    cloud = dense_blocks(np, 4, int(SIZING_FILL * dense_cap) // 4, seed=3)
+    card_mi = ModelInference(WEIGHTS, precision="float32")
+    old_mi = ModelInference(WEIGHTS, precision="float32")
+    old_mi.max_batch_capacity = OLD_CEILING
+    outs, plans = [], []
+    for mi in (card_mi, old_mi):
+        plans.append([len(b.coords) for b in batches_of(cloud, mi.max_batch_capacity)])
+        out = mi.predict(cloud)
+        order = np.lexsort(np.concatenate([out["xyz"], out["rgb"]], axis=1).T)
+        outs.append({k: v[order] for k, v in out.items()})
+    got, ref = outs
+    np.testing.assert_array_equal(got["xyz"], ref["xyz"])
+    for k in ("radius", "direction", "class_logits"):
+        np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=f"dense_blocks {k}")
+    agree = float((got["class_logits"].argmax(1) == ref["class_logits"].argmax(1)).mean())
+    agreement["dense_blocks"] = {"points": len(cloud), "voxels": len(got["xyz"]),
+                                 "card_plan": plans[0], "old_ceiling_plan": plans[1],
+                                 "class_agreement": agree}
+    log(f"sizing plans: {agreement}")
+    if plans[0] == plans[1]:
         raise AssertionError("the dense blocks' batches are the same under the old ceiling")
     result["plans"] = agreement
     result["phase_s"] = time.perf_counter() - t_phase
     return result, slab_rows
+
+
+def bench_convs(mi16, batches):
+    """Every 27-column conv of the bench tree's batches on their exact
+    plans: (name, rulebook, table rows, Cin, Cout)."""
+    convs = []
+    for vb in batches:
+        x, plan, _ = mi16._plan_batch(vb)
+        rows = [lv.keys.shape[0] for lv in plan.levels]
+        log(f"batch capacity {len(vb.coords)}: exact level rows {rows}")
+        convs += [(f"cap{len(vb.coords)}.{name}", rb, plan.levels[lvl].keys.shape[0],
+                   cin, cout)
+                  for name, rb, lvl, cin, cout in unet_convs(plan, mi16.model.unet_planes)]
+    return convs
+
+
+def dispatch_crossover(torch, np, convs, max_rows: int, card):
+    """Phase 3 (b): the hand kernels against route 3 over row counts. Per
+    (Cin, Cout) of the bench model, the tallest bench rulebook of that pair
+    is tiled (copy j reads its own copy of the table) to every row count of
+    CROSSOVER_ROWS up to `max_rows`; at each, B1 and route 3 at bf16 and,
+    while the table holds at most CROSSOVER_TABLE_BYTES, B2 and route 3 at
+    fp32, each the median of 20 event-timed calls after 3 warm-ups, and
+    each kernel held against its plain version (every row count: ragged, M
+    not a multiple of the 128-row tile, and M < 128). Returns the rows and,
+    per pair, the smallest row count from which each kernel is faster at
+    every count measured."""
+    from smart_tree_tpu_torch.core import fused_conv, slab_conv, sparse_ops
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    tallest = {}
+    for _, rb, n, cin, cout in convs:
+        if (cin, cout) not in tallest or rb.shape[0] > tallest[cin, cout][0].shape[0]:
+            tallest[cin, cout] = (rb, n)
+    rows_out, summary = [], {}
+
+    def crossover_ms(fn):
+        return median_ms(torch, fn, repeats=20, warmup=3)
+
+    def held(got, plain, rb, what, tol):
+        """got against `plain` over row blocks (the plain gather of a tall
+        rulebook would not fit): the largest abs error."""
+        err = 0.0
+        for r in range(0, rb.shape[0], CROSSOVER_CHECK_ROWS):
+            ref = plain(rb[r : r + CROSSOVER_CHECK_ROWS])
+            part = got[r : r + CROSSOVER_CHECK_ROWS]
+            err = max(err, float((part - ref).abs().max()))
+            if not torch.allclose(part, ref, **tol):
+                raise AssertionError(f"{what} at M={rb.shape[0]}: max abs err {err}")
+        return err
+
+    for (cin, cout), (rb0, n0) in sorted(tallest.items()):
+        m0 = rb0.shape[0]
+        w = torch.randn((27, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5
+        pair = []
+        for m in (r for r in CROSSOVER_ROWS if r <= max_rows):
+            copies = -(-m // m0)
+            base = rb0.repeat(copies, 1)[:m]
+            off = (torch.arange(copies, device=dev, dtype=torch.int32) * n0) \
+                .repeat_interleave(m0)[:m, None]
+            rb = torch.where(base >= 0, base + off, -1).to(torch.int32).contiguous()
+            feats = torch.randn((copies * n0, cin), generator=gen, device=dev)
+            cfg16, cfg32 = sparse_ops.ConvConfig("bfloat16"), sparse_ops.ConvConfig("float32")
+            chunked = cfg16.chunked(m, 27 * cin)
+            row = {"cin": cin, "cout": cout, "m": m, "route3_chunked": chunked}
+            got = slab_conv.slab_gather_conv(feats, rb, w)
+            row["b1_err"] = held(got, lambda r: slab_conv.slab_gather_conv_plain(feats, r, w),
+                                 rb, f"slab kernel {cin}->{cout}", dict(rtol=0, atol=SLAB_ATOL))
+            del got
+            row["b1_ms"] = crossover_ms(lambda: slab_conv.slab_gather_conv(feats, rb, w))
+            row["route3_bf16_ms"] = crossover_ms(
+                lambda: sparse_ops._gather_gemm(feats, rb, w, cfg16, chunked))
+            if m * cin * 4 <= CROSSOVER_TABLE_BYTES:
+                got = fused_conv.fused_gather_gemm(feats, rb, w)
+                row["b2_err"] = held(got, lambda r: fused_conv.fused_gather_gemm_plain(
+                    feats, r, w), rb, f"fused kernel {cin}->{cout}", FUSED_TOL)
+                del got
+                row["b2_ms"] = crossover_ms(lambda: fused_conv.fused_gather_gemm(feats, rb, w))
+                row["route3_fp32_ms"] = crossover_ms(
+                    lambda: sparse_ops._gather_gemm(feats, rb, w, cfg32, chunked))
+            log(f"crossover {row}")
+            pair.append(row)
+            del rb, feats, base, off
+        for kernel, plain in (("b1", "route3_bf16"), ("b2", "route3_fp32")):
+            timed = [r for r in pair if f"{kernel}_ms" in r]
+            wins = [r[f"{kernel}_ms"] < r[f"{plain}_ms"] for r in timed]
+            # the smallest row count from which the kernel wins at every count
+            start = next((i for i in range(len(wins)) if all(wins[i:])), None)
+            summary.setdefault(f"{cin}->{cout}", {})[f"{kernel}_faster_from_rows"] = (
+                None if start is None else timed[start]["m"])
+            summary[f"{cin}->{cout}"][f"{kernel}_wins_at_every_count"] = all(wins)
+        rows_out += pair
+    torch.cuda.empty_cache()
+    return {"card": card, "rows": rows_out, "by_pair": summary,
+            "seconds": time.perf_counter() - t0}
+
+
+def checked_unet(mi):
+    """Wrap mi._unet so that every pass checks its plan: each level's keys,
+    mask and rulebooks exactly its voxel count long, every key valid, every
+    rulebook entry a row of its table, and the input at level 0's rows.
+    Reads each count: never in a timed forward. Undo with `del mi._unet`."""
+    unet = mi._unet
+
+    def check(x, plan):
+        levels = plan.levels
+        if x.feats.shape[0] != levels[0].keys.shape[0]:
+            raise AssertionError(f"input rows {x.feats.shape[0]}, level 0 {levels[0].keys.shape}")
+        for lvl, lv in enumerate(levels):
+            n = lv.keys.shape[0]
+            if int(lv.count) != n or lv.active.shape[0] != n or not bool(lv.active.all()):
+                raise AssertionError(f"level {lvl}: {n} rows, count {int(lv.count)}")
+            tables = [(lv.subm_rb, n, n)]
+            if lv.down_rb is not None:
+                n_next = levels[lvl + 1].keys.shape[0]
+                tables += [(lv.down_rb, n_next, n), (lv.up_rb, n, n_next)]
+            for rb, rows, table in tables:
+                if rb.shape != (rows, 27) or int(rb.max()) >= table or int(rb.min()) < -1:
+                    raise AssertionError(f"level {lvl}: a rulebook of {tuple(rb.shape)} over "
+                                         f"{table} rows, the level holds {rows}")
+        return unet(x, plan)
+
+    mi._unet = check
+
+
+def exact_plan_phase(torch, np, card, forest_scan=None):
+    """Phase 21: exact plans on the card. (a) the bench tree at bf16 in the
+    three transfer modes: one UNet pass a batch, every plan tensor at its
+    level's count (`checked_unet`), B1 launches a forward, the forward's
+    seconds (median of 5), the device-busy share of one profiled forward and
+    the peak allocated bytes against the footprint model at the exact
+    counts; (b) at fp32 each bench batch's exact-plan forward against the
+    same batch through static plans at capacities that do not overflow (the
+    trainer's form), route 3 on every conv of both; (c) the bf16 classes
+    against fp32's; (d) fp32 on the card against the CPU on the small tree;
+    (e) the forest's densest blocks, one pass a batch, beside the passes of
+    phase 17's whole forest scan. Returns the `exact_plans` line."""
+    from smart_tree_tpu_torch.bench import _profiled_forward, kernel_busy_s
+    from smart_tree_tpu_torch.core import fused_conv, slab_conv
+    from smart_tree_tpu_torch.core.coords import INVALID_KEY
+    from smart_tree_tpu_torch.core.memory import estimate_forward_hbm
+    from smart_tree_tpu_torch.core.plan import build_plan
+    from smart_tree_tpu_torch.core.sparse_ops import ConvConfig
+    from smart_tree_tpu_torch.core.sparse_tensor import SparseVoxelTensor
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.dataset import BlockTiler
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.tools import bench_scan
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cloud = CentreCloud()(generate_tree(**BENCH_TREE)[0])
+    result = {"card": card, "modes": {}}
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) the three modes at bf16
+    outs = {}
+    for mode, kw in (("full", dict(compact_transfers=False)), ("compact", {}),
+                     ("culled", dict(medial_classes=[0]))):
+        mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
+        batches = [len(b.coords) for b in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
+            4, max_capacity=mi.max_batch_capacity)]
+        checked_unet(mi)
+        mi.forward(cloud)   # also the warm-up
+        del mi._unet
+        if len(mi.plan_rows) != len(batches):
+            raise AssertionError(f"{mode}: {len(mi.plan_rows)} UNet passes for "
+                                 f"{len(batches)} batches")
+        slab_conv.slab_gather_conv.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = synced(lambda: mi.forward(cloud))
+        measured = torch.cuda.max_memory_allocated() - base
+        launches = slab_conv.slab_gather_conv.launches
+        if launches == 0:
+            raise AssertionError(f"{mode}: the bf16 forward never launched the slab kernel")
+        est = max(estimate_forward_hbm(r[0], mi.model.unet_planes, level_caps=r,
+                                       in_flight=mi.max_in_flight, **mi.footprint_terms)["peak"]
+                  for r in mi.plan_rows)
+        if measured > est / 1.5:
+            raise AssertionError(f"{mode}: {measured} bytes allocated, the model at the exact "
+                                 f"counts {est / 1.5} before headroom")
+        seconds = sorted(synced(lambda: mi.forward(cloud))[1] for _ in range(5))
+        wall, events = _profiled_forward(mi, cloud, dev, None)
+        busy = kernel_busy_s(events)
+        result["modes"][mode] = {
+            "batch_capacities": batches, "plan_rows": mi.plan_rows,
+            "unet_passes": len(mi.plan_rows), "slab_launches_per_forward": launches,
+            "forward_s": seconds, "forward_median_s": seconds[2],
+            "profiled_wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "peak_bytes": measured, "model_peak_bytes": est, "ratio": measured / est * 1.5,
+        }
+        log(f"exact plans {mode}: {result['modes'][mode]}")
+        outs[mode] = out
+    for mode in ("compact", "culled"):
+        if not np.array_equal(outs[mode].xyz, outs["full"].xyz):
+            raise AssertionError(f"{mode}: other rows than the full download's")
+
+    # (b) fp32: exact plans against static plans that do not overflow
+    mi32 = ModelInference(WEIGHTS, batch_size=4, precision="float32", compact_transfers=False)
+    model, levels = mi32.model, len(mi32.model.unet_planes)
+    slab_conv.slab_gather_conv.launches = fused_conv.fused_gather_gemm.launches = 0
+    static_err = {}
+    with torch.no_grad():
+        for vb in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
+                4, max_capacity=mi32.max_batch_capacity):
+            x, plan, _ = mi32._plan_batch(vb)
+            n, cap = x.capacity, len(vb.coords)
+            exact = model(plan, x.feats, ConvConfig("float32"))
+            keys = torch.cat([x.keys, x.keys.new_full((cap - n,), INVALID_KEY)])
+            feats = torch.cat([x.feats, x.feats.new_zeros((cap - n, x.feats.shape[1]))])
+            xs = SparseVoxelTensor(keys, feats, keys != INVALID_KEY, x.spatial_shape,
+                                   x.batch_size)
+            caps = (cap, *(max(256, 1 << (lv.keys.shape[0] - 1).bit_length())
+                           for lv in plan.levels[1:]))
+            splan = build_plan(xs, levels, level_capacities=caps)
+            if any(int(lv.count) > lv.keys.shape[0] for lv in splan.levels):
+                raise AssertionError(f"the static plan at {caps} overflowed")
+            static = model(splan, xs.feats, ConvConfig("float32"))
+            for k in ("radius", "direction", "class_l"):
+                a, b = exact[k], static[k][:n]
+                static_err[k] = max(static_err.get(k, 0.0), float((a - b).abs().max()))
+                if not torch.allclose(a, b, **MODEL_TOL):
+                    raise AssertionError(f"fp32 exact against static plan at {caps}, {k}: "
+                                         f"max abs err {static_err[k]}")
+    if slab_conv.slab_gather_conv.launches or fused_conv.fused_gather_gemm.launches:
+        raise AssertionError("a hand kernel ran in the fp32 exact / static comparison")
+    result["fp32_exact_vs_static_max_abs_err"] = static_err
+
+    # (c) bf16 classes against fp32's, on the same rows
+    out32 = mi32.predict(cloud)
+    np.testing.assert_array_equal(outs["full"].xyz, out32["xyz"])
+    agree = float((outs["full"].class_l[:, 0] == out32["class_logits"].argmax(1)).mean())
+    result["class_agreement_bf16_vs_fp32"] = agree
+    if agree < 0.99:
+        raise AssertionError(f"bf16 against fp32 class agreement {agree}")
+
+    # (d) fp32 on the card against the CPU on the small tree
+    small = CentreCloud()(generate_tree(**SMALL_TREE)[0])
+    got = ModelInference(WEIGHTS, precision="float32").predict(small)
+    ref = ModelInference(WEIGHTS, precision="float32", device="cpu").predict(small)
+    np.testing.assert_array_equal(got["xyz"], ref["xyz"])
+    for k in ("radius", "direction", "class_logits"):
+        np.testing.assert_allclose(got[k], ref[k], **MODEL_TOL, err_msg=k)
+
+    # (e) the forest's densest blocks, culled bf16
+    forest = bench_scan.make_forest(FOREST_TREES, FOREST_POINTS_PER_M2)
+    q = np.floor(np.asarray(forest.xyz) / 4.0).astype(np.int64)
+    _, inverse, block_points = np.unique(q, axis=0, return_inverse=True, return_counts=True)
+    dense = np.argsort(block_points)[::-1][:FOREST_DENSE_BLOCKS]
+    forest = forest.filter(np.isin(inverse.reshape(-1), dense))
+    mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", medial_classes=[0])
+    n_batches = len(list(BlockTiler(forest, 0.01, 4.0, 0.4).batches(
+        4, max_capacity=mi.max_batch_capacity)))
+    checked_unet(mi)
+    out, dt = synced(lambda: mi.forward(forest))
+    del mi._unet
+    if len(mi.plan_rows) != n_batches or not np.isfinite(out.medial_vector).all():
+        raise AssertionError(f"forest dense blocks: {len(mi.plan_rows)} passes for {n_batches} "
+                             "batches, or a non-finite output")
+    result["forest_dense_blocks"] = {"points": len(forest), "batches": n_batches,
+                                     "unet_passes": len(mi.plan_rows),
+                                     "plan_rows": mi.plan_rows, "forward_s": dt}
+    if forest_scan is not None:   # phase 17's whole forest, one forward
+        result["forest_scan"] = {"batches": forest_scan["host_tiling"]["batches"],
+                                 "unet_passes": forest_scan["unet_passes"]}
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"exact plans: {result}")
+    return result
 
 
 def main() -> int:
@@ -1717,7 +2010,6 @@ def main() -> int:
     import numpy as np
 
     from smart_tree_tpu_torch.core import fused_conv, kernels, slab_conv
-    from smart_tree_tpu_torch.core.sparse_ops import ConvConfig
     from smart_tree_tpu_torch.data.augmentations import CentreCloud
     from smart_tree_tpu_torch.data.dataset import BlockTiler
     from smart_tree_tpu_torch.data.synthetic import generate_tree
@@ -1748,24 +2040,7 @@ def main() -> int:
                           batch_size=4, precision="bfloat16")
     batches = list(BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
         4, max_capacity=mi16.max_batch_capacity))
-    # every 27-column conv of every batch, on the plan the forward settles on
-    # (overflow retries included): (name, rulebook, table rows, Cin, Cout,
-    # the batch's slab row threshold)
-    convs = []
-    for vb in batches:
-        level_caps = None
-        while True:
-            x, plan, _ = mi16._plan_batch(vb, level_caps)
-            counts = [int(lv.count) for lv in plan.levels]
-            caps = [lv.keys.shape[0] for lv in plan.levels]
-            if all(c <= k for c, k in zip(counts, caps)):
-                break
-            level_caps = ModelInference._retry_caps(counts, caps)
-        log(f"batch capacity {len(vb.coords)}: level capacities {caps}, counts {counts}")
-        slab_min = ConvConfig("bfloat16", cap_hint=x.capacity).slab_min_rows
-        convs += [(f"cap{len(vb.coords)}.{name}", rb, plan.levels[lvl].keys.shape[0],
-                   cin, cout, slab_min)
-                  for name, rb, lvl, cin, cout in unet_convs(plan, mi16.model.unet_planes)]
+    convs = bench_convs(mi16, batches)
     log(f"{len(cloud)} points, {len(batches)} batches, {len(convs)} convs")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1798,8 +2073,8 @@ def main() -> int:
     def tallest(select):
         """Per (Cin, Cout), the tallest rulebook among the convs selected."""
         best = {}
-        for name, rb, n, cin, cout, slab_min in convs:
-            if select(rb, cin, cout, slab_min):
+        for name, rb, n, cin, cout in convs:
+            if select(rb, cin, cout):
                 key = (cin, cout)
                 if key not in best or rb.shape[0] > best[key][1].shape[0]:
                     best[key] = (name, rb, n)
@@ -1807,7 +2082,7 @@ def main() -> int:
 
     # the slab kernel at each (Cin, Cout) it takes, at its tallest rulebook
     slab_rows_out = []
-    for (cin, cout), (name, rb, n) in tallest(lambda rb, ci, co, smin: rb.shape[0] >= smin):
+    for (cin, cout), (name, rb, n) in tallest(lambda rb, ci, co: True):
         feats, rb, w = operands(rb, n, cin, cout)
         got = twice_equal(lambda: slab_conv.slab_gather_conv(feats, rb, w), f"slab kernel {name}")
         ref = slab_conv.slab_gather_conv_plain(feats, rb, w)
@@ -1844,7 +2119,7 @@ def main() -> int:
     # it (table <= 8 MiB), at its tallest rulebook
     fused_rows_out = []
     for (cin, cout), (name, rb, n) in tallest(
-            lambda rb, ci, co, smin: fused_conv.should_use_fused(rb.shape[0], 27, ci, co)):
+            lambda rb, ci, co: fused_conv.should_use_fused(rb.shape[0], 27, ci, co)):
         feats, rb, w = operands(rb, n, cin, cout)
         got = twice_equal(lambda: fused_conv.fused_gather_gemm(feats, rb, w),
                           f"fused kernel {name}")
@@ -1871,7 +2146,10 @@ def main() -> int:
         fused_rows_out.append(row)
     if not fused_rows_out:
         raise AssertionError("no conv of the bench plan reaches the fused kernel")
-    del x, plan, convs, feats, rb, no_rb, w, fe, fe16, idx, out, got, ref, scratch
+    del feats, rb, no_rb, w, fe, fe16, idx, out, got, ref, scratch
+    # (b) the dispatch crossover, both kernels against route 3 by row count
+    crossover = dispatch_crossover(torch, np, convs, mi16.max_batch_capacity, card)
+    del convs
 
     # 4. bf16 forward of the bench tree
     n_interior = sum(int(b.mask.sum()) for b in batches)
@@ -2289,6 +2567,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sizing, slab_tall_rows = sizing_phase(torch, np, card)
 
+    # 21. exact plans on the card
+    torch.cuda.empty_cache()
+    exact_plans = exact_plan_phase(torch, np, card, tools["forest_scan"])
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2360,6 +2642,8 @@ def main() -> int:
     print(json.dumps({"probes": probes}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"sizing": sizing}), flush=True)
+    print(json.dumps({"dispatch": crossover}), flush=True)
+    print(json.dumps({"exact_plans": exact_plans}), flush=True)
     if probe_problems:
         raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -106,14 +106,17 @@ def lookup(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def unique_keys(
-    keys: torch.Tensor, capacity: int
+    keys: torch.Tensor, capacity: int | None = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Deduplicate keys into a static output capacity (np.unique semantics:
-    ascending unique keys, first_idx at the lowest original row).
+    """Deduplicate keys (np.unique semantics: ascending unique keys,
+    first_idx at the lowest original row) into `capacity` output rows.
 
     Returns (ukeys [capacity] INVALID-padded, first_idx [capacity] (N where
     padded), inverse [N] (-1 for invalid rows), count (may exceed capacity
-    on overflow)). Static shapes throughout: no host synchronisation."""
+    on overflow)). With a capacity (the JAX package's static form) nothing
+    is read back to the host. `capacity=None` is the exact form: one host
+    read of the count, which then is the capacity, so every output row
+    holds a unique key and nothing can overflow."""
     n = keys.shape[0]
     dev = keys.device
     skeys, order = sort_keys(keys)
@@ -122,6 +125,8 @@ def unique_keys(
     newgrp[1:] = skeys[1:] != skeys[:-1]
     newgrp &= is_valid
     count = newgrp.sum().to(torch.int32)
+    if capacity is None:
+        capacity = int(count)  # the exact form's one host read
     gid_sorted = torch.cumsum(newgrp.to(torch.int32), 0) - 1
     rows = torch.arange(n, device=dev)
     # group leaders compacted to the static capacity (jnp.nonzero with

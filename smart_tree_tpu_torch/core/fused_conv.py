@@ -13,8 +13,8 @@ design and bound.
 
 `fused_gather_gemm` launches the kernel on CUDA tensors and raises on input
 the kernel does not take; on CPU tensors it runs `fused_gather_gemm_plain`
-(gather plus fp32 matmul). `should_use_fused` is the JAX package's gate
-(`pallas_ops.should_use_pallas`): the table must hold at most 8 MiB.
+(gather plus fp32 matmul). `should_use_fused` is the gate of route 2, as
+the H100 measured it.
 """
 
 from __future__ import annotations
@@ -23,13 +23,26 @@ import torch
 
 from . import kernels
 
-_TABLE_BYTES = 8 * 1024 * 1024
+# The kernel against route 3 at fp32 (chip_smoke.py phase 3 (b), NVIDIA H100
+# 80GB HBM3, 700.00 W, the median of 20 calls at each count, three runs):
+# faster at every row count measured, 37 to 1,048,576, with tables up to 32
+# MiB, for 9 of the 8/16/32/64 model's 10 (Cin, Cout). The kernel reads its
+# table from device memory through the L2, so the JAX package's 8 MiB gate,
+# the TPU kernel's VMEM budget, has no counterpart: past it the kernel took
+# 0.34 to 0.37 ms against route 3's 18.02 to 18.16 ms (8 -> 8, 1,048,576
+# rows, 32 MiB). At 64 -> 64 route 3 was the faster at 100 and 1,001 rows in
+# all three runs (0.142 to 0.203 ms against the kernel's 0.183 to 0.212 ms:
+# one CTA's walk over the 27 offsets of 128-wide rows), the kernel from
+# 4,096 rows in two runs and from 16,411 in the third (at 4,096 the two
+# within 0.011 ms either way).
+WIDE_CIN_COUT = 64 * 64
+WIDE_MIN_ROWS = 4096
 
 
 def should_use_fused(m: int, k3: int, cin: int, cout: int) -> bool:
-    """The JAX package's size gate, as it states it: m * cin * 4 <= 8 MiB
-    (m is the rulebook's row count)."""
-    return m * cin * 4 <= _TABLE_BYTES
+    """Whether route 2 takes an [m, k3] rulebook of cin -> cout: always,
+    but at Cin * Cout of 64 * 64 and more below WIDE_MIN_ROWS rows."""
+    return cin * cout < WIDE_CIN_COUT or m >= WIDE_MIN_ROWS
 
 
 def fused_gather_gemm_plain(

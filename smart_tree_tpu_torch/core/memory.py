@@ -12,11 +12,12 @@ reference:
     - z-window tables and rulebook-build temporaries;
     - persistent plan tables and feature buffers.
 
-The port's convs chunk where the JAX package's do (core/sparse_ops.py,
-`ConvConfig.chunked`): route 3 gathers ROW_CHUNK rows at a time, forward
-and backward, once a whole fp32 gather would pass CHUNK_BYTES (1 GiB). A
-smaller gather is built whole, which the JAX package's model does not
-count (it counts ROW_CHUNK rows). On a card, where the batches grow to
+The port's route 3 (core/sparse_ops.py, `ConvConfig.chunked`) gathers
+ROW_CHUNK rows at a time, forward and backward, once a whole fp32 gather
+would pass CHUNK_BYTES (1 GiB), whatever the row count (the last chunk
+short): the model's chunked term is then right for the exact plans' ragged
+levels too. A smaller gather is built whole, which the JAX package's model
+does not count (it counts ROW_CHUNK rows). On a card, where the batches grow to
 millions of voxels, `ModelInference` counts the port's own terms
 (`CARD_FOOTPRINT`, measured against the allocator's peaks by chip_smoke.py
 phase 20): those whole gathers, and 8-byte keys, query keys and indices
@@ -97,8 +98,9 @@ def estimate_forward_hbm(
     {"peak", "transient", "persistent", "per_level_transient",
     "level_capacities"}, with a 1.5x headroom on the peak.
 
-    level_caps: the level capacities of an overflow rerun, in place of the
-        schedule `factor` gives (level 0 stays `capacity`).
+    level_caps: every level's rows, in place of `capacity` and the
+        schedule `factor` gives: an exact plan's level counts (the port's
+        inference plans; ModelInference holds each to the budget by them).
 
     index_bytes: bytes of a query key, a lookup result and a z-window query
         key (the JAX package's 4; CARD_FOOTPRINT's 8).
@@ -108,7 +110,7 @@ def estimate_forward_hbm(
         or its widest Cin channels."""
     caps = level_capacities(capacity, len(planes), factor)
     if level_caps is not None:
-        caps = (capacity, *(int(c) for c in level_caps[1:]))
+        caps = tuple(int(c) for c in level_caps)
     per_level = []
     persistent = 0
     for lvl, (cap_l, c_l) in enumerate(zip(caps, planes)):

@@ -174,11 +174,12 @@ def downsample_coords(
     keys: torch.Tensor,
     spatial_shape: Sequence[int],
     batch_size: int,
-    out_capacity: int,
+    out_capacity: int | None,
 ) -> Tuple[torch.Tensor, Tuple[int, int, int], torch.Tensor]:
     """Output key table of a K=3, s=2, p=1 strided conv.
 
-    Returns (sorted out_keys [out_capacity], out_spatial_shape, count)."""
+    Returns (sorted out_keys [out_capacity], out_spatial_shape, count);
+    out_capacity None: exactly `count` rows (`unique_keys`' exact form)."""
     out_keys, out_shape, count, _ = downsample_with_rulebook(
         keys, spatial_shape, batch_size, out_capacity
     )
@@ -189,14 +190,16 @@ def downsample_with_rulebook(
     keys: torch.Tensor,
     spatial_shape: Sequence[int],
     batch_size: int,
-    out_capacity: int,
+    out_capacity: int | None,
 ) -> Tuple[torch.Tensor, Tuple[int, int, int], torch.Tensor, torch.Tensor]:
     """`downsample_coords` plus the strided gather rulebook, from one sweep
     over the 8N candidates: candidate (input i, corner) targets output row
     inverse[candidate] at kernel column k = c - (2o - 1). (o, k) pairs are
     unique, so the scatter is collision-free.
 
-    Returns (sorted out_keys, out_spatial_shape, count, drb [out_capacity, 27])."""
+    Returns (sorted out_keys, out_spatial_shape, count, drb [out_capacity, 27]).
+    out_capacity None is the exact form: one host read of the count, and
+    the key table and the rulebook hold exactly `count` rows."""
     out_shape = _downsample_shape(spatial_shape)
     coords = unpack_keys(keys, spatial_shape, batch_size)
     active = keys != INVALID_KEY
@@ -207,6 +210,7 @@ def downsample_with_rulebook(
     )
     ckeys = pack_coords(cand, out_shape, batch_size, valid=cvalid)
     out_keys, _, inverse, count = unique_keys(ckeys, out_capacity)
+    out_capacity = out_keys.shape[0]
     irows = torch.arange(n, dtype=torch.int32, device=dev).repeat(8)
     orow = torch.where(
         cvalid & (inverse >= 0) & (inverse < out_capacity), inverse, out_capacity

@@ -6,17 +6,25 @@ Every conv is written from the output side,
     out[M, Cout] = gather(feats)[M, K3*Cin] @ W[K3*Cin, Cout],
 
 with missing neighbours gathering a zero row. `gather_conv` keeps the JAX
-dispatch rule for rule:
+package's three routes in its order; the thresholds between them are the
+H100's (chip_smoke.py phase 3 (b), NVIDIA H100 80GB HBM3, 700.00 W), not
+the TPU's:
 
-  1. the slab kernel (core/slab_conv.py) for k3 == 27, rows >=
-     max(65536, cap_hint // 4) and bf16 precision;
-  2. the fused kernel (core/fused_conv.py) when opted in and the table
-     holds at most 8 MiB;
+  1. the slab kernel (core/slab_conv.py) for k3 == 27 at bf16 precision,
+     whatever the row count: against route 3 it was faster at every count
+     measured, 37 to 4,194,304 rows, at each (Cin, Cout) of the 8/16/32/64
+     model, in three runs (0.039 to 0.116 ms against 0.157 to 0.522 ms at 37
+     rows, 0.71 to 7.70 ms against 86 to 190 ms at 4,194,304). The JAX
+     package's 65,536-row and capacity / 4 floors were measured on a TPU;
+  2. the fused kernel (core/fused_conv.py) when opted in, at the sizes
+     `fused_conv.should_use_fused` measured;
   3. otherwise gather plus torch.matmul in the precision asked for, in
-     row chunks where the JAX package's `_map_row_chunks` chunks: when one
-     whole [M, K3*Cin] fp32 gather would pass `chunk_bytes` (1 GiB), M is
-     past `row_chunk` (32768) and a multiple of it. Below that it is one
-     gather and one matmul.
+     row chunks of `row_chunk` (32768) rows, the last one short, when one
+     whole [M, K3*Cin] fp32 gather would pass `chunk_bytes` (1 GiB) and M
+     is past `row_chunk`. Below that it is one gather and one matmul. (The
+     JAX package's `_map_row_chunks` chunks only an M that is a multiple of
+     the chunk, which its pow2 level capacities are; the port's exact plans
+     give any M.)
 
 A compact submanifold rulebook (`SubmRB9`, plans built with
 subm_mode="z9") is checked before the three routes, as in the JAX package:
@@ -49,10 +57,6 @@ from . import fused_conv, kernels, slab_conv
 from .coords import INVALID_KEY
 from .rulebook import SubmRB9
 
-# Rulebooks at least this tall take the slab kernel (the JAX package's
-# measured threshold); the batch capacity scales it up past 262,144 rows.
-SLAB_MIN_ROWS = 65536
-
 PRECISIONS = ("float32", "bfloat16")
 
 # Route 3's row chunk and the gather size past which it chunks: the JAX
@@ -67,15 +71,12 @@ class ConvConfig:
     """How the convs of one forward run.
 
     precision: "float32" or "bfloat16" (operand rounding of every product).
-    cap_hint:  the batch's voxel capacity; the slab row threshold is
-               max(SLAB_MIN_ROWS, cap_hint // 4).
-    fused:     take the fused gather-GEMM kernel where the table fits.
+    fused:     take the fused gather-GEMM kernel where it is the faster.
     row_chunk, chunk_bytes: route 3 runs in chunks of `row_chunk` rows when
                a whole fp32 gather would pass `chunk_bytes` (`chunked`).
     """
 
     precision: str = "float32"
-    cap_hint: int = 0
     fused: bool = False
     row_chunk: int = ROW_CHUNK
     chunk_bytes: int = CHUNK_BYTES
@@ -84,15 +85,11 @@ class ConvConfig:
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {self.precision!r}")
 
-    @property
-    def slab_min_rows(self) -> int:
-        return max(SLAB_MIN_ROWS, self.cap_hint // 4)
-
     def chunked(self, m: int, width: int) -> bool:
         """Whether route 3 chunks an [m, width] gather: the rule of the JAX
-        package's `_map_row_chunks`."""
-        return (m * width * 4 > self.chunk_bytes and m > self.row_chunk
-                and m % self.row_chunk == 0)
+        package's `_map_row_chunks` for any m, a multiple of the chunk or
+        not."""
+        return m * width * 4 > self.chunk_bytes and m > self.row_chunk
 
 
 class _RoundBf16(torch.autograd.Function):
@@ -145,8 +142,8 @@ class _GatherRows(torch.autograd.Function):
 
 class _ChunkedGatherConv(torch.autograd.Function):
     """gather(feats by rulebook) @ w2 over row chunks: feats [N, Cin],
-    rulebook [M, K3], w2 [K3 * Cin, Cout] -> [M, Cout], with M a multiple of
-    `chunk`. It saves its inputs, not the gather: the forward writes each
+    rulebook [M, K3], w2 [K3 * Cin, Cout] -> [M, Cout], the last chunk
+    short where M is not a multiple of `chunk`. It saves its inputs, not the gather: the forward writes each
     chunk's product into the output, the backward gathers each chunk again
     for dW += gather^T dout and sends dout w2^T back through the valid
     entries with `index_add_`, as `_GatherRows` does. The operands arrive
@@ -206,7 +203,7 @@ def gather_conv(
         return _gather_conv_z(feats, rulebook, weights, cfg)
     k3, cin, cout = weights.shape
     hand = not kernels.needs_grad(feats, weights)
-    if hand and k3 == 27 and rulebook.shape[0] >= cfg.slab_min_rows and cfg.precision == "bfloat16":
+    if hand and k3 == 27 and cfg.precision == "bfloat16":
         return slab_conv.slab_gather_conv(feats, rulebook, weights).to(feats.dtype)
     if hand and cfg.fused and fused_conv.should_use_fused(rulebook.shape[0], k3, cin, cout):
         return fused_conv.fused_gather_gemm(feats, rulebook, weights)
@@ -267,9 +264,10 @@ def _gather_conv_z(feats: torch.Tensor, rb: SubmRB9, weights: torch.Tensor,
     rows make a 27-column rulebook (`_window_rulebook`, equal to the full
     subm rulebook entry for entry), which route 3 gathers. So the gradient is
     route 3's: only matched entries travel back, through `index_add_`, and
-    no hand kernel is taken. Rows are chunked where the JAX package chunks
-    them (`_map_row_chunks` over pos / qkey at width 27 * Cin); the window
-    rulebook is then made chunk by chunk too."""
+    no hand kernel is taken. Rows are chunked by route 3's rule
+    (`ConvConfig.chunked` over pos / qkey at width 27 * Cin, the JAX
+    package's `_map_row_chunks` at its pow2 sizes); the window rulebook is
+    then made chunk by chunk too."""
     k3, cin, _ = weights.shape
     if k3 != 27:
         raise ValueError(f"a SubmRB9 rulebook needs 27 kernel offsets, got {k3}")

@@ -15,9 +15,9 @@
 // 16 * 16 up the FMAs bound it; below that the bytes do. The UNet's
 // rulebooks are sparse (4 to 44 % of the entries are valid, half of the
 // padded rows have none), so the work that counts is the valid entries'.
-// The table (<= 8 MiB by the caller's gate) stays in device memory and the
-// 50 MB L2 serves the repeated reads; the TPU kernel's VMEM-resident table
-// has no counterpart in 227 KB of shared memory.
+// The table stays in device memory, whatever its size, and the 50 MB L2
+// serves the repeated reads; the TPU kernel's VMEM-resident table (and its
+// 8 MiB gate) has no counterpart in 227 KB of shared memory.
 //
 // Design. One CTA computes a tile of kTile = 128 output rows and all of Cout,
 // whatever Cout is.

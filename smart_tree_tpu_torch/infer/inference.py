@@ -7,17 +7,19 @@ device, with its three transfer modes:
       default configuration): each batch uploads host-sorted packed keys
       (int32 bit patterns of the uint32 keys, 4 B a voxel), int8 residuals
       for absolute-xyz models (fp16 for 'local' ones) and the interior mask
-      as bits, only the rows that hold a voxel; the device pads them to the
-      batch capacity, unpacks coords from the keys (no device sort), runs the
-      plan and SmartTree, quantises the heads (`compress_preds`) and
-      partitions the rows, so that only the interior rows' int8 class and the
-      medial-class rows' fp16 radius and int8 direction come back. Rows of
-      any other class get medial_vector = 0.
+      as bits, only the rows that hold a voxel (staged to
+      `upload_granularity`); the device keeps their active prefix, unpacks
+      coords from the keys (no device sort), runs the plan and SmartTree,
+      quantises the heads (`compress_preds`) and partitions the rows, so
+      that only the interior rows' int8 class and the medial-class rows'
+      fp16 radius and int8 direction come back. Rows of any other class get
+      medial_vector = 0.
   compact  (`compact_transfers=True`, `medial_classes=None`): the same
       upload; every active row's quantised heads come back.
   full download  (`compact_transfers=False`): int16 coords and fp16
-      residuals up, device sort, fp32 heads and the sort order back; the
-      class filter of `medial_classes` is applied on the host.
+      residuals of the valid rows up, device sort, fp32 heads and the sort
+      order back; the class filter of `medial_classes` is applied on the
+      host.
       `predict()` always takes this path: full-precision heads for
       inspection (the JAX package quantises this path too).
 
@@ -29,46 +31,53 @@ grouped by shape in sorted order, `len(devices)` at a time, every batch of a
 group launched on its own device's replica before the group is collected,
 so the rows come back in the JAX package's multichip order.
 
-A batch whose UNet level overflowed reruns the same mode with counts-driven
-level capacities (a stride-2 level can hold up to 8x the voxels of the one
-above it, so these can pass the batch capacity). The rerun is held to the
-budget as the plan is: at the JAX package's capacities (2x an overflowed
-count) where the model's peak fits, else at the counts alone, else the
-batch is split into two halves of its blocks that run afresh; a single
-block whose rerun does not fit runs past the budget, with a warning.
+Plans are exact (core/plan.py): level 0 holds the batch's active rows and
+each level below exactly its voxels, one host read of each count, so no
+level is padded and none can overflow; every batch takes one UNet pass.
+The plan is held to the budget before the UNet is queued: where the
+footprint model at the plan's level sizes passes `hbm_budget_bytes`, the
+batch is split into two halves of its blocks (`data/dataset.py::
+halve_batch`), each planned afresh; a single block past the budget runs,
+with a warning. (The JAX package pads each level to a fixed share of the
+one above and reruns an overflowed batch at larger capacities, so that
+`jit` compiles one program per shape; the port runs eagerly.)
 
 `max_in_flight` batches are queued before the host collects the oldest: the
 run half of every mode only queues work (pinned uploads, a device-side
 partition, downloads into pinned buffers on a copy stream that waits for an
 event of its own batch), and the host waits for that batch's event only, so
-collecting batch i overlaps batch i+1 on the card.
+collecting batch i overlaps batch i+1 on the card. On a card each in-flight
+slot queues on a stream of its own, so that the count reads of a batch's
+plan wait for that slot's last batch, already collected, and not for the
+batches still in flight.
 
 Batches are sized against `hbm_budget_bytes` (core/memory.py): the largest
 pow2 batch capacity whose estimated forward peak at level capacity factor
-1.0 fits it, and every overflow rerun is held to it (above). By default
-(`None`) the budget is 0.75 of the card's total memory, split between the
-replicas that share a card, and the model counts the port's own footprint
-terms; on the CPU both are the JAX package's (12 GiB), so that the CPU
-splits a cloud into the reference's batches.
+1.0 fits it, as in the JAX package, and every exact plan is held to it
+(above). By default (`None`) the budget is 0.75 of the card's total memory,
+split between the replicas that share a card, and the model counts the
+port's own footprint terms; on the CPU both are the JAX package's (12 GiB),
+so that the CPU splits a cloud into the reference's batches.
 
-The forward runs eagerly; `precision` ("float32" or "bfloat16") and the
-batch capacity reach every conv as arguments (core/sparse_ops.py). With
-`fused=True` the convs whose table fits 8 MiB take the fused gather-GEMM
-kernel, like the JAX package under SMART_TREE_TPU_PALLAS=1.
+The forward runs eagerly; `precision` ("float32" or "bfloat16") reaches
+every conv as an argument (core/sparse_ops.py). With `fused=True` the convs
+take the fused gather-GEMM kernel, like the JAX package under
+SMART_TREE_TPU_PALLAS=1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import logging
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
-from ..core.coords import INVALID_KEY, pack_coords, sort_keys, unpack_keys
+from ..core.coords import INVALID_KEY, pack_coords, pack_coords_np, sort_keys, unpack_keys
 from ..core.memory import (
     device_budget_bytes,
     estimate_forward_hbm,
@@ -161,6 +170,18 @@ class _Download:
         return [b.numpy() for b in self.arrays]
 
 
+class _Split:
+    """What a run half returns for a batch whose plan passed the budget: the
+    queued halves, each (half batch, its own run half's result)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def collect(self, collect, sinks) -> None:
+        for half, out in self.parts:
+            collect(half, out, sinks)
+
+
 class ModelInference:
     def __init__(
         self,
@@ -172,7 +193,7 @@ class ModelInference:
         precision: str = "float32",
         model_path: str | Path | None = None,  # reference-config compatibility (unused)
         num_workers: int = 0,  # reference-config compatibility (unused)
-        level_capacity_factor: float = 0.5,
+        level_capacity_factor: float = 0.5,  # the JAX keyword (unused: plans are exact)
         max_in_flight: int = 2,
         hbm_budget_bytes: int | None = None,
         compact_transfers: bool = True,
@@ -205,7 +226,6 @@ class ModelInference:
         ConvConfig(precision)  # validates the name
         self.precision = precision
         self.fused = fused
-        self.level_capacity_factor = level_capacity_factor
         self.max_in_flight = max_in_flight
         self.hbm_budget_bytes = (device_budget_bytes(self.devices) if hbm_budget_bytes is None
                                  else hbm_budget_bytes)
@@ -219,8 +239,8 @@ class ModelInference:
         # the largest pow2 batch capacity whose estimated forward peak fits
         # the budget at factor 1.0 (every level as large as the batch) with
         # max_in_flight batches queued, as in the JAX package; on a card the
-        # model counts the port's own footprint terms. An overflow rerun's
-        # levels can be larger still: `_rerun` holds them to the same budget
+        # model counts the port's own footprint terms. An exact plan's levels
+        # can be larger still: `_halves` holds them to the same budget
         self.footprint_terms = footprint_terms(self.devices)
         self.max_batch_capacity = max_capacity_for_budget(
             self.hbm_budget_bytes,
@@ -232,9 +252,13 @@ class ModelInference:
         # running totals of the bytes each forward moved over the link; the
         # caller reads and resets them
         self.link_bytes = {"upload": 0, "download": 0}
+        # the level rows of every plan the last forward ran, one tuple per
+        # UNet pass (`_unet`)
+        self.plan_rows: list = []
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        self._streams: list = []  # the in-flight slots' streams (`_slot`)
         self._sharded = None  # parallel.ShardedForward, made at first use
 
     # -- transfers ---------------------------------------------------------
@@ -262,111 +286,88 @@ class ModelInference:
             ready.record()
         return _Download(tensors, self._copy_stream, ready)
 
-    # -- the full-download path ----------------------------------------------
+    def _slot(self, i: int):
+        """The stream context batch i of a window is queued in: on a card, one
+        stream for each of the `max_in_flight` slots, so that the host reads
+        of a plan's level counts wait for the work queued before them on
+        that slot, the batch collected last, and not for the batches still
+        in flight; nothing on the CPU."""
+        if self._copy_stream is None:
+            return contextlib.nullcontext()
+        k = max(1, self.max_in_flight)
+        while len(self._streams) < k:
+            self._streams.append(torch.cuda.Stream(self.device))
+        return torch.cuda.stream(self._streams[i % k])
 
-    def _plan_batch(self, vb, level_caps: Tuple[int, ...] | None = None):
-        """Upload one batch (int16 coords, fp16 residuals, origins) and build
-        its sorted input tensor and UNet plan on the device: (x, plan, order)."""
-        c16, res, orig, valid = self._upload(*vb.compressed_xyz_upload(), vb.valid)
-        coords, fv = make_features(c16, res, orig, self.voxel_size, self.feature_mode)
-        keys = pack_coords(coords, vb.spatial_shape, vb.batch_size, valid=valid)
-        skeys, order = sort_keys(keys)
-        active = skeys != INVALID_KEY
-        feats = torch.where(active[:, None], fv[order], 0.0)
-        x = SparseVoxelTensor(skeys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
-        plan = build_plan(
-            x,
-            len(self.model.unet_planes),
-            level_capacity_factor=self.level_capacity_factor,
-            level_capacities=level_caps,
-        )
-        return x, plan, order
+    # -- planning --------------------------------------------------------------
+
+    def _plan(self, x):
+        """The exact plan of `x` (level 0 is x's rows)."""
+        return build_plan(x, len(self.model.unet_planes), level_capacity_factor=None)
+
+    def _halves(self, vb, plan):
+        """None where the plan's modelled peak (core/memory.py at its level
+        rows, max_in_flight batches in flight) fits the budget; else the two
+        halves of vb's blocks, planned afresh by the caller. A single block
+        past the budget runs (None), with a warning."""
+        rows = tuple(lv.keys.shape[0] for lv in plan.levels)
+        est = estimate_forward_hbm(rows[0], self.model.unet_planes,
+                                   in_flight=max(1, self.max_in_flight), level_caps=rows,
+                                   **self.footprint_terms)
+        if est["peak"] <= self.hbm_budget_bytes:
+            return None
+        halves = halve_batch(vb)
+        if halves is None:
+            log.warning("a one-block batch with levels of %s rows passes the budget of %d "
+                        "bytes in the footprint model", rows, self.hbm_budget_bytes)
+        return halves
 
     def _unet(self, x, plan):
-        """SmartTree on one planned batch: (fp32-or-bf16 heads, level counts,
-        level capacities)."""
-        cfg = ConvConfig(self.precision, cap_hint=x.capacity, fused=self.fused)
-        preds = self.model(plan, x.feats, cfg)
-        counts = torch.stack([lv.count for lv in plan.levels])
-        caps = tuple(lv.keys.shape[0] for lv in plan.levels)
-        return preds, counts, caps
+        """SmartTree on one planned batch (one UNet pass): the fp32-or-bf16
+        heads."""
+        self.plan_rows.append(tuple(lv.keys.shape[0] for lv in plan.levels))
+        cfg = ConvConfig(self.precision, fused=self.fused)
+        return self.model(plan, x.feats, cfg)
+
+    # -- the full-download path ----------------------------------------------
+
+    def _plan_batch(self, vb):
+        """Upload one batch's valid rows (int16 coords, fp16 residuals,
+        origins) and build its sorted input tensor of the active rows alone
+        and its exact plan on the device: (x, plan, order)."""
+        n_valid = vb.n_valid
+        c16, res, orig = vb.compressed_xyz_upload()
+        c16, res, orig = self._upload(c16[:n_valid], res[:n_valid], orig)
+        coords, fv = make_features(c16, res, orig, self.voxel_size, self.feature_mode)
+        keys = pack_coords(coords, vb.spatial_shape, vb.batch_size)
+        n_act = int(np.count_nonzero(pack_coords_np(
+            vb.coords[:n_valid], vb.spatial_shape, vb.batch_size) != INVALID_KEY))
+        skeys, order = sort_keys(keys)
+        skeys, order = skeys[:n_act], order[:n_act]   # the active rows sort first
+        x = SparseVoxelTensor(skeys, fv[order], skeys != INVALID_KEY,
+                              tuple(vb.spatial_shape), vb.batch_size)
+        return x, self._plan(x), order
 
     @torch.no_grad()
-    def _run_batch(self, vb, level_caps: Tuple[int, ...] | None = None):
-        """Queue one full-download batch: (download of counts, sort order,
-        active mask and the fp32 heads; level capacities)."""
-        x, plan, order = self._plan_batch(vb, level_caps)
-        preds, counts, caps = self._unet(x, plan)
+    def _run_batch(self, vb):
+        """Queue one full-download batch: the download of the sort order and
+        the fp32 heads (or a `_Split`)."""
+        x, plan, order = self._plan_batch(vb)
+        halves = self._halves(vb, plan)
+        if halves is not None:
+            del x, plan, order
+            return _Split([(half, self._run_batch(half)) for half in halves])
+        preds = self._unet(x, plan)
         heads = [preds[k].float() for k in ("radius", "direction", "class_l")]
-        return self._download([counts, order, x.active, *heads]), caps
+        return self._download([order, *heads])
 
-    @staticmethod
-    def _retry_caps(counts, caps) -> Tuple[int, ...]:
-        """Per-level buffer sizes for an overflow retry: 2x headroom on
-        overflowed levels (levels below one were built from a truncated
-        table and may still grow), pow2, at least 256."""
-        out = []
-        for cnt, cap in zip(np.asarray(counts), np.asarray(caps)):
-            need = int(cnt) * 2 if int(cnt) > int(cap) else int(cnt)
-            cap2 = 256
-            while cap2 < max(need, int(cap)):
-                cap2 *= 2
-            out.append(cap2)
-        return tuple(out)
-
-    def _rerun_caps(self, capacity: int, counts, caps):
-        """The level capacities of an overflowed batch's rerun, held to the
-        budget as the plan is (the model's peak with max_in_flight batches
-        in flight): the JAX package's `_retry_caps` where they fit, else
-        each level's count rounded up to a power of two (exact down to the
-        first overflowed level, so that a later level's overflow is left to
-        the next rerun). (level capacities, whether they fit)."""
-        tight = tuple(1 << max(8, int(c - 1).bit_length()) for c in np.asarray(counts))
-        for level_caps in (self._retry_caps(counts, caps), tight):
-            est = estimate_forward_hbm(
-                capacity, self.model.unet_planes, in_flight=max(1, self.max_in_flight),
-                level_caps=level_caps, **self.footprint_terms)
-            if est["peak"] <= self.hbm_budget_bytes:
-                return level_caps, True
-        return tight, False
-
-    def _rerun(self, vb, counts, caps, attempt: int, run, collect, sinks) -> bool:
-        """False when no level of the batch overflowed. Else the batch is
-        rerun through `run` and `collect` into the sinks at `_rerun_caps`,
-        or, where those do not fit the budget, as two halves of its blocks,
-        each planned afresh; a single block that does not fit reruns at the
-        counts' capacities past the budget, with a warning. Raises when the
-        overflow persists."""
-        counts = np.asarray(counts)
-        if not bool(np.any(counts > np.asarray(caps))):
-            return False
-        if attempt >= len(self.model.unet_planes):
-            raise RuntimeError(
-                f"UNet level buffer overflow persists after {attempt} "
-                f"counts-driven retries (counts {counts} vs capacities {caps})"
-            )
-        level_caps, fits = self._rerun_caps(len(vb.coords), counts, caps)
-        halves = None if fits else halve_batch(vb)
-        if halves is None:
-            if not fits:
-                log.warning(
-                    "the rerun of a one-block batch of capacity %d at level capacities %s "
-                    "passes the budget of %d bytes in the footprint model",
-                    len(vb.coords), level_caps, self.hbm_budget_bytes)
-            collect(vb, run(vb, level_caps=level_caps), sinks, attempt + 1)
-            return True
-        for half in halves:
-            collect(half, run(half), sinks)
-        return True
-
-    def _collect(self, vb, out, sinks, attempt: int = 0):
+    def _collect(self, vb, out, sinks):
         """Read one full-download batch into the sinks (xyzrgb, radius,
-        direction, class logits), rerunning it if a level overflowed."""
-        fetch, caps = out
-        counts, order, active, radius, direction, logits = fetch.get()
-        if self._rerun(vb, counts, caps, attempt, self._run_batch, self._collect, sinks):
-            return
-        keep = active & vb.mask[order]
+        direction, class logits)."""
+        if isinstance(out, _Split):
+            return out.collect(self._collect, sinks)
+        order, radius, direction, logits = out.get()
+        keep = vb.mask[order]
         out_xyzrgb, out_radius, out_dir, out_class = sinks
         out_xyzrgb.append(vb.feats[order[keep]][:, :6])
         out_radius.append(radius[keep])
@@ -375,69 +376,62 @@ class ModelInference:
 
     # -- the compact and culled paths ----------------------------------------
 
-    def _pad_sorted(self, skeys, res, cap: int):
-        """Extend a staged sorted upload to the batch capacity on the device:
-        int32 key bit patterns widened to the int64-held uint32 keys,
-        INVALID_KEY past the stage (sorts last, reads inactive), int8
-        residuals dequantised to fp16 as the JAX package does, zero
-        residuals past the stage."""
-        stage = skeys.shape[0]
-        keys = torch.full((cap,), INVALID_KEY, dtype=torch.int64, device=skeys.device)
-        keys[:stage] = skeys.to(torch.int64) & 0xFFFFFFFF
+    def _pad_sorted(self, skeys, res, rows: int):
+        """A staged sorted upload on the device at `rows` rows: int32 key bit
+        patterns widened to the int64-held uint32 keys, int8 residuals
+        dequantised to fp16 as the JAX package does; rows past the stage
+        hold INVALID_KEY (sorts last, reads inactive) and zero residuals.
+        The forward takes the active prefix (rows = the active count); the
+        JAX package pads to the batch capacity."""
+        k = min(skeys.shape[0], rows)
+        keys = torch.full((rows,), INVALID_KEY, dtype=torch.int64, device=skeys.device)
+        keys[:k] = skeys[:k].to(torch.int64) & 0xFFFFFFFF
         if res.dtype == torch.int8:
             res = (res.to(torch.float32) * (self.voxel_size / 254.0)).to(torch.float16)
-        r = torch.zeros((cap, 3), dtype=torch.float16, device=skeys.device)
-        r[:stage] = res
+        r = torch.zeros((rows, 3), dtype=torch.float16, device=skeys.device)
+        r[:k] = res[:k]
         return keys, r
 
-    def _forward_sorted(self, vb, level_caps, skeys, res, origins):
-        """The forward over a host-sorted staged upload: the keys are the
-        sort order, so coords come from `unpack_keys` and there is no device
-        sort or gather. (quantised heads, counts, caps, active)."""
-        keys, r = self._pad_sorted(skeys, res, len(vb.coords))
+    def _sorted_input(self, vb, n_act: int, skeys, res, origins):
+        """The input tensor of a host-sorted staged upload: its n_act active
+        rows; the keys are the sort order, so coords come from `unpack_keys`
+        and there is no device sort or gather."""
+        keys, r = self._pad_sorted(skeys, res, n_act)
         active = keys != INVALID_KEY
         coords = unpack_keys(keys, vb.spatial_shape, vb.batch_size)
         fv = _features(coords, r, origins, self.voxel_size, self.feature_mode)
         feats = torch.where(active[:, None], fv, 0.0)
-        x = SparseVoxelTensor(keys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
-        plan = build_plan(
-            x,
-            len(self.model.unet_planes),
-            level_capacity_factor=self.level_capacity_factor,
-            level_capacities=level_caps,
-        )
-        preds, counts, caps = self._unet(x, plan)
-        return compress_preds(preds), counts, caps, active
+        return SparseVoxelTensor(keys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
 
     @torch.no_grad()
-    def _run_batch_compact(self, vb, level_caps: Tuple[int, ...] | None = None):
-        """Queue one compact batch: (download of counts and the staged rows'
-        quantised heads; level capacities)."""
-        skeys, res, orig, _ = vb.compact_upload_sorted(self.upload_granularity, self.res_dtype)
-        keys_d, res_d, orig_d = self._upload(skeys.view(np.int32), res, orig)
-        preds, counts, caps, _ = self._forward_sorted(vb, level_caps, keys_d, res_d, orig_d)
-        stage = len(skeys)
-        heads = [preds[k][:stage] for k in ("radius", "direction", "class_l")]
-        return self._download([counts, *heads]), caps
+    def _run_batch_compact(self, vb):
+        """Queue one compact batch: the download of the active rows'
+        quantised heads (or a `_Split`)."""
+        skeys, res, orig, n_act = vb.compact_upload_sorted(self.upload_granularity,
+                                                           self.res_dtype)
+        x = self._sorted_input(vb, n_act, *self._upload(skeys.view(np.int32), res, orig))
+        plan = self._plan(x)
+        halves = self._halves(vb, plan)
+        if halves is not None:
+            del x, plan
+            return _Split([(half, self._run_batch_compact(half)) for half in halves])
+        preds = compress_preds(self._unet(x, plan))
+        return self._download([preds[k] for k in ("radius", "direction", "class_l")])
 
-    def _collect_compact(self, vb, out, sinks, attempt: int = 0):
+    def _collect_compact(self, vb, out, sinks):
         """Read one compact batch into the sinks (xyzrgb, radius, direction,
-        class), rerunning it if a level overflowed."""
-        fetch, caps = out
-        counts, radius, direction, class_l = fetch.get()
-        if self._rerun(vb, counts, caps, attempt, self._run_batch_compact,
-                       self._collect_compact, sinks):
-            return
+        class)."""
+        if isinstance(out, _Split):
+            return out.collect(self._collect_compact, sinks)
+        radius, direction, class_l = out.get()
         _, order, n_act = vb.key_order()
         order = order[:n_act]              # active rows are the sorted prefix
         keep = vb.mask[order]
-        keep_s = np.zeros(len(radius), bool)
-        keep_s[: len(keep)] = keep
         out_xyzrgb, out_radius, out_dir, out_class = sinks
         out_xyzrgb.append(vb.feats[order[keep]][:, :6])
-        out_radius.append(radius[keep_s].astype(np.float32))
-        out_dir.append(decode_direction(direction[keep_s]))
-        out_class.append(class_l[keep_s])
+        out_radius.append(radius[keep].astype(np.float32))
+        out_dir.append(decode_direction(direction[keep]))
+        out_class.append(class_l[keep])
 
     def _partition(self, preds, active, interior):
         """The download cull on the device: class rows permuted interior-
@@ -454,34 +448,36 @@ class ModelInference:
                 keep_m.sum(dtype=torch.int64))
 
     @torch.no_grad()
-    def _run_batch_culled(self, vb, level_caps: Tuple[int, ...] | None = None):
-        """Queue one culled batch: (download of counts + medial count; level
-        capacities; the partitioned class, radius and direction on the
-        device)."""
-        skeys, res, orig, _, bits = vb.compact_upload_sorted(
+    def _run_batch_culled(self, vb):
+        """Queue one culled batch: (download of the medial count; the
+        partitioned class, radius and direction on the device), or a
+        `_Split`."""
+        skeys, res, orig, n_act, bits = vb.compact_upload_sorted(
             self.upload_granularity, self.res_dtype, with_mask=True)
         keys_d, res_d, orig_d, bits_d = self._upload(skeys.view(np.int32), res, orig, bits)
-        preds, counts, caps, active = self._forward_sorted(vb, level_caps, keys_d, res_d, orig_d)
-        interior = torch.zeros_like(active)
-        interior[: len(skeys)] = _unpack_bits(bits_d, len(skeys))
-        cls_p, rad_p, dir_p, n_med = self._partition(preds, active, interior)
-        # the counts and the medial count come back in ONE small fetch; the
-        # three downloads are sliced to them in _collect_culled
-        return self._download([torch.cat([counts.to(torch.int64), n_med[None]])]), caps, \
-            (cls_p, rad_p, dir_p)
+        x = self._sorted_input(vb, n_act, keys_d, res_d, orig_d)
+        plan = self._plan(x)
+        halves = self._halves(vb, plan)
+        if halves is not None:
+            del x, plan
+            return _Split([(half, self._run_batch_culled(half)) for half in halves])
+        preds = compress_preds(self._unet(x, plan))
+        interior = _unpack_bits(bits_d, n_act)
+        cls_p, rad_p, dir_p, n_med = self._partition(preds, x.active, interior)
+        # the medial count comes back alone; the three downloads are sliced
+        # to it in _collect_culled
+        return self._download([n_med[None]]), (cls_p, rad_p, dir_p)
 
-    def _collect_culled(self, vb, out, sinks, attempt: int = 0):
+    def _collect_culled(self, vb, out, sinks):
         """Read one culled batch into the sinks. The host rebuilds both
         device permutations from what it has (its mask and key sort for the
         interior rows, the downloaded classes for the medial rows), so the
         radius / direction download covers exactly the medial interior rows;
         the other interior rows get medial_vector = 0."""
-        small, caps, (cls_p, rad_p, dir_p) = out
-        (vals,) = small.get()
-        counts, m = vals[:-1], int(vals[-1])
-        if self._rerun(vb, counts, caps, attempt, self._run_batch_culled,
-                       self._collect_culled, sinks):
-            return
+        if isinstance(out, _Split):
+            return out.collect(self._collect_culled, sinks)
+        small, (cls_p, rad_p, dir_p) = out
+        m = int(small.get()[0][0])
         _, order, n_act = vb.key_order()
         keep = vb.mask[order[:n_act]]       # the device's keep_i over active rows
         rows = order[:n_act][keep]          # original rows, sorted order
@@ -520,6 +516,7 @@ class ModelInference:
         tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
         batches = tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity)
         sinks = ([], [], [], [])
+        self.plan_rows = []
         if len(self.devices) > 1:
             batches = list(batches)
             if len(batches) > 1:
@@ -527,8 +524,9 @@ class ModelInference:
                 return sinks
         run, collect = getattr(self, run), getattr(self, collect)
         window: list = []
-        for vb in batches:
-            window.append((vb, run(vb)))
+        for i, vb in enumerate(batches):
+            with self._slot(i):
+                window.append((vb, run(vb)))
             if len(window) >= max(1, self.max_in_flight):
                 collect(*window.pop(0), sinks)
         for vb, out in window:

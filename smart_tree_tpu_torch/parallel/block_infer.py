@@ -5,8 +5,10 @@ independent, so the JAX package stacks one batch per device on a mesh axis
 and shard_maps the single-device forward over it, with no collective. Here
 there is no shard_map: `ShardedForward` holds one replica of a
 `ModelInference` per device (the model copied to the device, a copy stream
-of its own) and each replica runs the port's own per-batch halves on its
-batch. A group's batches are all launched before the first is collected, so
+and a compute stream of its own) and each replica runs the port's own
+per-batch halves on its batch, on its compute stream, so that the count
+reads of one replica's exact plan never wait for another replica's batch
+on the same card. A group's batches are all launched before the first is collected, so
 the cards work at once. The download cull runs on each replica, as it runs
 per shard in the JAX package.
 
@@ -91,20 +93,22 @@ class ShardedForward:
     def __init__(self, inference, devices: Sequence[torch.device]):
         self.devices = [torch.device(d) for d in devices]
         self.models = []
-        self.streams = []
+        self.streams = []    # (copy stream, compute stream) of each slot
         for dev in self.devices:
             with on_device(dev):
                 self.models.append(copy.deepcopy(inference.model).to(dev).eval())
-                self.streams.append(torch.cuda.Stream(dev) if dev.type == "cuda" else None)
+                self.streams.append((torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+                                    if dev.type == "cuda" else (None, None))
 
     def replicas(self, inference) -> List:
         """Shallow copies of `inference` that run on the devices: its
-        settings as they are now, each slot's model, device and copy stream
-        (and the caller's `link_bytes`, which they add to)."""
+        settings as they are now, each slot's model, device and streams (and
+        the caller's `link_bytes` and `plan_rows`, which they add to)."""
         out = []
-        for dev, model, stream in zip(self.devices, self.models, self.streams):
+        for dev, model, (copy_stream, compute) in zip(self.devices, self.models, self.streams):
             rep = copy.copy(inference)
-            rep.device, rep.model, rep._copy_stream = dev, model, stream
+            rep.device, rep.model, rep._copy_stream = dev, model, copy_stream
+            rep._streams = [] if compute is None else [compute]
             out.append(rep)
         return out
 
@@ -115,14 +119,13 @@ class ShardedForward:
         launched = []
         for rep, vb, k in zip(replicas, chunk, keep):
             if k:
-                with on_device(rep.device):
+                with on_device(rep.device), rep._slot(0):
                     launched.append((rep, vb, getattr(rep, run)(vb)))
         return launched
 
     @staticmethod
     def collect(launched, collect: str, sinks) -> None:
-        """Read a launched group into the sinks, in device order (an overflow
-        reruns on the batch's own replica)."""
+        """Read a launched group into the sinks, in device order."""
         for rep, vb, out in launched:
             with on_device(rep.device):
                 getattr(rep, collect)(vb, out, sinks)

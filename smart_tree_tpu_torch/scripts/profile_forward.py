@@ -12,9 +12,9 @@ warm-up forward it prints one JSON line with:
   - host block tiling with the native dedup (`voxelize_host`) and with the
     numpy one (`voxelize_host_plain`), and whether the two tilings agree;
   - per batch, each ended by a device synchronise: the run half (upload,
-    plan, UNet, partition) and the collect half (fetch, download, host
-    reorder; it reruns a batch whose level overflowed), and the bytes the
-    forward moved each way;
+    the exact plan with its count reads, UNet, partition) and the collect
+    half (fetch, download, host reorder), the plan's level rows, and the
+    bytes the forward moved each way;
   - whole forwards at max_in_flight 1 and 2;
   - torch.profiler's device time by kernel over one more forward, its sum,
     and the device's busy share of that forward's wall time (the profiler
@@ -106,12 +106,14 @@ def main(argv=None) -> int:
     mi.link_bytes.update(upload=0, download=0)
     sinks = ([], [], [], [])
     per_batch = []
+    mi.plan_rows = []
     for vb in batches:
         out, t_run = _sync_time(lambda: run(vb))
         _, t_collect = _sync_time(lambda: collect(vb, out, sinks))
         phases["run_s"] += t_run
         phases["collect_s"] += t_collect
-        per_batch.append({"capacity": len(vb.coords), "run_s": t_run, "collect_s": t_collect})
+        per_batch.append({"capacity": len(vb.coords), "level_rows": mi.plan_rows[-1],
+                          "run_s": t_run, "collect_s": t_collect})
     phases["link_bytes"] = dict(mi.link_bytes)
     forward_s = {}
     for k in (1, 2):

@@ -89,7 +89,7 @@ def main() -> int:
         phases["plan_s"] += dt
 
         def forward():
-            preds = model(plan, x.feats, ConvConfig(sc.matmul_precision, cap_hint=x.capacity))
+            preds = model(plan, x.feats, ConvConfig(sc.matmul_precision))
             return sum(compute_loss(preds, targets, mask, direction_loss=sc.direction_loss,
                                     direction_min_radius=sc.direction_min_radius).values())
 

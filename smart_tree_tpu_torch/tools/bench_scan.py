@@ -90,6 +90,7 @@ def scan(cloud: Cloud, n_trees: int, weights=WEIGHTS, skeletonize: bool = False,
         "cold_s": round(warm, 2),
         "trees_per_min": round(n_trees / dt * 60, 2),
         "forward_peak_bytes": _peak(dev),
+        "unet_passes": len(mi.plan_rows),   # one exact plan a batch
     }
     skel = None
     if skeletonize:

@@ -2,8 +2,7 @@
 `tools/roofline.py`, against the H100's peaks.
 
 Walks the conv inventory of SmartTree (`nn/model.py`, `nn/blocks.py`) at a
-batch capacity and the per-level capacity schedule, and counts per level and
-in total:
+batch's level rows and counts per level and in total:
 
   - gather indices issued (27 per output row of a 27-column conv);
   - device-memory bytes of the gather + GEMM path: read `cin` items per
@@ -11,19 +10,25 @@ in total:
     write the [m, cout] output;
   - FLOPs of the GEMMs (2 m k cin cout).
 
+A batch is given either by its capacity, for the JAX tool's schedule (each
+level `factor` times the one above, at least 256 rows: the static plans of
+the JAX package), or by its exact level rows, the rows the port's forward
+runs (`ModelInference.plan_rows`, the bench's `batch_level_rows`).
+
 Caveat: the bytes model the materialised gather + GEMM of the XLA path
 (route 3 in the port). The slab kernel (`csrc/slab_conv.cu`), which takes
-every bf16 27-column conv of at least 65,536 rows, never materialises the
-gathered matrix, so the bytes share is a yardstick of that path, not of the
-kernel. The FLOP count is the same whatever implements the convs. No
-per-index gather cost is modelled: it has not been measured on the H100.
+the bf16 27-column convs, never materialises the gathered matrix, so the
+bytes share is a yardstick of that path, not of the kernel. The FLOP count
+is the same whatever implements the convs. No per-index gather cost is
+modelled: it has not been measured on the H100.
 
     python -m smart_tree_tpu_torch.tools.roofline --capacity 131072 [--measured-ms 12.5]
-    python -m smart_tree_tpu_torch.tools.roofline --capacity 262144 131072 ... --measured-ms T
+    python -m smart_tree_tpu_torch.tools.roofline --capacity 2963,7233,2260,610 ... --measured-ms T
 
-With several capacities (the batches of one forward, e.g. the bench's
-`batch_capacities`) the totals are the whole forward's, and `--measured-ms`
-is its device time (the bench's `device_step_s`).
+With several batches (those of one forward, e.g. the bench's
+`batch_level_rows`, each level's rows joined by commas) the totals are the
+whole forward's, and `--measured-ms` is its device time (the bench's
+`device_step_s`).
 """
 
 from __future__ import annotations
@@ -57,11 +62,17 @@ def level_convs(planes, lvl):
 
 def analyze(capacity, planes=(8, 16, 32, 64), factor=0.5, itemsize=4,
             input_channels=3, heads=HEADS):
-    """(level capacities, per-level dicts, totals) of indices, bytes and
-    FLOPs for one batch of `capacity` rows."""
-    caps = [capacity]
-    for _ in planes[1:]:
-        caps.append(max(int(caps[-1] * factor), 256))
+    """(level rows, per-level dicts, totals) of indices, bytes and FLOPs for
+    one batch: `capacity` an int (the factor schedule from it) or every
+    level's exact rows."""
+    if isinstance(capacity, int):
+        caps = [capacity]
+        for _ in planes[1:]:
+            caps.append(max(int(caps[-1] * factor), 256))
+    else:
+        caps = [int(n) for n in capacity]
+        if len(caps) != len(planes):
+            raise ValueError(f"{len(caps)} level rows for {len(planes)} levels")
     total = dict(indices=0, bytes=0, flops=0)
     per_level = []
     for lvl in range(len(planes)):
@@ -89,8 +100,8 @@ def analyze(capacity, planes=(8, 16, 32, 64), factor=0.5, itemsize=4,
 
 def forward_totals(capacities, planes=(8, 16, 32, 64), factor=0.5, itemsize=4,
                    input_channels=3, heads=HEADS):
-    """`analyze`'s totals summed over the batches of one forward, one batch
-    capacity each."""
+    """`analyze`'s totals summed over the batches of one forward, each a
+    capacity or its exact level rows."""
     total = dict(indices=0, bytes=0, flops=0)
     for cap in capacities:
         _, _, t = analyze(cap, planes, factor, itemsize, input_channels, heads)
@@ -107,10 +118,17 @@ def achieved(total, seconds, precision="bfloat16"):
             "bytes_per_s": bytes_, "bytes_share": bytes_ / HBM_BYTES_PER_S}
 
 
+def _batch(text: str):
+    """A --capacity value: an int, or level rows joined by commas."""
+    rows = [int(v) for v in text.split(",")]
+    return rows[0] if len(rows) == 1 else tuple(rows)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m smart_tree_tpu_torch.tools.roofline")
-    ap.add_argument("--capacity", type=int, nargs="+", default=[131072],
-                    help="batch capacity; several = the batches of one forward")
+    ap.add_argument("--capacity", type=_batch, nargs="+", default=[131072],
+                    help="a batch capacity (the factor schedule) or a batch's exact level "
+                         "rows joined by commas; several = the batches of one forward")
     ap.add_argument("--factor", type=float, default=0.5)
     ap.add_argument("--precision", choices=sorted(PEAK_FLOPS), default="bfloat16",
                     help="operand type: sets the item size and the FLOP peak")
@@ -121,7 +139,7 @@ def main(argv=None):
     itemsize = ITEMSIZE[args.precision]
     for cap in args.capacity:
         caps, per_level, total = analyze(cap, factor=args.factor, itemsize=itemsize)
-        print(f"capacity {cap} (levels {caps})")
+        print(f"batch {cap} (level rows {caps})")
         print(f"{'lvl':>3} {'cap':>8} {'gather idx':>12} {'MB moved':>10} {'MFLOP':>8}")
         for lv in per_level:
             print(f"{lv['level']:>3} {lv['cap']:>8} {lv['indices']:>12,} "

@@ -136,7 +136,7 @@ def compute_losses(model: SmartTree, batch, sc: StepConfig, train: bool) -> Dict
     model.train(train)
     dtype = sc.compute_dtype if train else torch.float32
     x, plan, targets, mask = _prepare(batch, sc, len(model.unet_planes), dtype)
-    cfg = ConvConfig(sc.matmul_precision if train else "float32", cap_hint=x.capacity)
+    cfg = ConvConfig(sc.matmul_precision if train else "float32")
     preds = model(plan, x.feats, cfg)
     return compute_loss(
         preds, targets, mask,

@@ -20,7 +20,8 @@ REPO = Path(__file__).resolve().parent.parent
 BENCH_KEYS = (
     "metric", "value", "unit", "vs_baseline", "device_step_s", "device_points_per_sec",
     "device_vs_cpu_baseline", "dispatch_overhead_s", "n_points", "end_to_end_s",
-    "end_to_end_reps_s", "slab_launches_per_forward", "batch_capacities", "device",
+    "end_to_end_reps_s", "slab_launches_per_forward", "batch_capacities", "batch_level_rows",
+    "device",
     "n_branch_points", "n_skeletons", "pipeline_s", "clouds_per_min_e2e",
 )
 DEVICE_KEYS = ("device_step_s", "device_step_reps_s", "device_busy_share",
@@ -64,6 +65,10 @@ def test_run_bench_tiny_on_cpu():
     assert out["end_to_end_s"] == out["end_to_end_reps_s"][0]
     assert out["slab_launches_per_forward"] == 0  # the plain version on the CPU
     assert out["batch_capacities"] and all(c > 0 for c in out["batch_capacities"])
+    # one exact plan a batch, level 0 the batch's voxels, within its capacity
+    assert len(out["batch_level_rows"]) == len(out["batch_capacities"])
+    for rows, cap in zip(out["batch_level_rows"], out["batch_capacities"]):
+        assert len(rows) == 4 and 0 < rows[0] <= cap
     assert out["device"] == "cpu"
     assert out["clouds_per_min_e2e"] > 0
     assert out["clouds_per_min_e2e"] == pytest.approx(60.0 / out["pipeline_s"])
@@ -117,6 +122,57 @@ def test_roofline_forward_totals_sum_jax_batches():
     shares = roofline.achieved(total, 0.5, "bfloat16")
     assert shares["flop_share"] == pytest.approx(total["flops"] / 0.5 / 989e12)
     assert shares["bytes_share"] == pytest.approx(total["bytes"] / 0.5 / 3.35e12)
+
+
+@pytest.mark.parametrize("capacity", [256, 4096, 131072])
+def test_roofline_level_rows_form_is_the_schedule_form(capacity):
+    """A batch given by its level rows counts as the JAX tool counts the
+    capacity whose schedule gives those rows."""
+    caps, _, total = _jax_roofline().analyze(capacity, itemsize=2)
+    got_caps, _, got = roofline.analyze(tuple(caps), itemsize=2)
+    assert got_caps == caps and got == total
+    with pytest.raises(ValueError, match="level rows"):
+        roofline.analyze((capacity, capacity))
+
+
+def test_roofline_counts_the_rows_the_forward_ran(monkeypatch):
+    """The roofline of a forward's exact level rows (`ModelInference.
+    plan_rows`) is the work its convs did: the FLOPs of every gather conv and
+    linear layer the forward called, counted as they run. The capacity
+    schedule of the JAX tool counts other work: on this sparse tree the
+    deeper levels hold more voxels than level 0, where it halves them."""
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.dataset import BlockTiler
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.nn import blocks
+
+    ran = []
+    gather_conv, linear = blocks.gather_conv, blocks.linear
+
+    def counted_conv(feats, rb, w, cfg):
+        ran.append(2 * rb.shape[0] * w.shape[0] * w.shape[1] * w.shape[2])
+        return gather_conv(feats, rb, w, cfg)
+
+    def counted_linear(feats, w, precision="float32"):
+        ran.append(2 * feats.shape[0] * w.shape[0] * w.shape[1])
+        return linear(feats, w, precision=precision)
+
+    monkeypatch.setattr(blocks, "gather_conv", counted_conv)
+    monkeypatch.setattr(blocks, "linear", counted_linear)
+    cloud, _ = generate_tree(seed=0, height=bench.TINY["height"], trunk_radius=0.25,
+                             points_per_m2=bench.TINY["points_per_m2"],
+                             foliage_points=bench.TINY["foliage_points"])
+    cloud = CentreCloud()(cloud)
+    mi = ModelInference(bench.DEFAULT_WEIGHTS, precision="bfloat16", medial_classes=(0,),
+                        device="cpu")
+    mi.forward(cloud)
+    caps = [len(vb.coords) for vb in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
+        4, max_capacity=mi.max_batch_capacity)]
+    assert len(mi.plan_rows) == len(caps) > 1
+    exact = roofline.forward_totals(mi.plan_rows, itemsize=2)
+    assert exact["flops"] == sum(ran)
+    assert exact["flops"] != roofline.forward_totals(caps, itemsize=2)["flops"]
+    assert all(rows[1] > rows[0] for rows in mi.plan_rows)
 
 
 @pytest.mark.parametrize(

@@ -103,12 +103,18 @@ def _jax_chunks(m, width, row_chunk, chunk_bytes, monkeypatch):
     (256, 216, 64, 256 * 216 * 4),       # exactly the threshold: whole
     (256, 216, 64, 256 * 216 * 4 - 1),   # one byte past it: chunks
     (64, 216, 64, 0),           # not past the chunk
-    (192, 216, 128, 0),         # not a multiple of the chunk
+    (192, 216, 128, 0),         # not a multiple of the chunk: the port chunks, JAX not
     (1024, 8, 256, 1000),       # chunks
 ])
 def test_chunking_rule_is_the_jax_rule(m, width, row_chunk, chunk_bytes, monkeypatch):
+    """The JAX package's rule at its pow2 row counts; past the chunk, a row
+    count that is not a multiple of it (an exact plan's level) chunks in
+    the port, with a short last chunk, where JAX's gathers it whole."""
     cfg = ConvConfig(row_chunk=row_chunk, chunk_bytes=chunk_bytes)
-    assert cfg.chunked(m, width) == _jax_chunks(m, width, row_chunk, chunk_bytes, monkeypatch)
+    jax_rule = _jax_chunks(m, width, row_chunk, chunk_bytes, monkeypatch)
+    ragged = m > row_chunk and m % row_chunk != 0 and m * width * 4 > chunk_bytes
+    assert cfg.chunked(m, width) == (jax_rule or ragged)
+    assert not (jax_rule and ragged)
 
 
 def test_defaults_are_the_jax_thresholds_and_the_bench_tree_never_chunks():

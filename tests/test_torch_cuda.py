@@ -316,7 +316,7 @@ def test_z9_conv_on_the_card_matches_the_cpu_and_takes_no_kernel(cuda, precision
     coords = np.concatenate([coords, np.full((cap - len(coords), 4), -1, np.int32)])
     feats = torch.from_numpy(rng.normal(size=(cap, 16)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(27, 16, 32)) / np.sqrt(27 * 16)).astype(np.float32))
-    cfg = ConvConfig(precision, cap_hint=0)
+    cfg = ConvConfig(precision)
     out = {}
     for dev in ("cpu", cuda):
         x = SparseVoxelTensor.from_coords(torch.from_numpy(coords).to(dev), feats.to(dev),

@@ -60,31 +60,39 @@ def test_plain_matches_jax_fused(n, m, k3, cin, cout):
     "m,cin", [(262144, 8), (262144, 16), (131072, 16), (65536, 64), (1000, 3)]
 )
 def test_gate_matches_jax(monkeypatch, m, cin):
-    """The port's gate is the JAX package's (m * cin * 4 <= 8 MiB) with the
-    opt-in moved from the environment to an argument."""
+    """The JAX package's gate (m * cin * 4 <= 8 MiB, the TPU kernel's VMEM)
+    is not the port's: the H100 kernel reads its table from device memory
+    and was the faster at every table size measured, so the port takes it
+    past 8 MiB too; only a 64 -> 64 conv under WIDE_MIN_ROWS rows stays on
+    route 3. The opt-in is an argument, not the environment."""
     monkeypatch.setenv("SMART_TREE_TPU_PALLAS", "1")
-    assert tfused.should_use_fused(m, 27, cin, 8) == jops.should_use_pallas(m, 27, cin, 8)
+    jax_gate = jops.should_use_pallas(m, 27, cin, 8)
+    assert jax_gate == (m * cin * 4 <= 8 * 1024 * 1024)
+    assert tfused.should_use_fused(m, 27, cin, 8)
+    assert tfused.should_use_fused(m, 27, 64, 64) == (m >= tfused.WIDE_MIN_ROWS)
 
 
 ROUTES = [
-    # (m, k3, precision, fused, cap_hint) -> route
-    ((65536, 27, "bfloat16", False, 0), "slab"),
-    ((65536, 27, "bfloat16", True, 0), "slab"),
-    ((65536, 27, "bfloat16", False, 524288), "plain"),   # threshold cap//4
-    ((131072, 27, "bfloat16", False, 524288), "slab"),
-    ((65535, 27, "bfloat16", False, 0), "plain"),
-    ((65536, 27, "float32", False, 0), "plain"),
-    ((65536, 27, "float32", True, 0), "fused"),
-    ((65536, 8, "bfloat16", True, 0), "fused"),
-    ((600000, 27, "float32", True, 0), "plain"),         # table over 8 MiB
+    # (m, k3, precision, fused, cin, cout) -> route
+    ((65536, 27, "bfloat16", False, 4, 8), "slab"),
+    ((65536, 27, "bfloat16", True, 4, 8), "slab"),
+    ((37, 27, "bfloat16", False, 4, 8), "slab"),          # no row floor on the card
+    ((131073, 27, "bfloat16", False, 4, 8), "slab"),      # ragged, past JAX's cap // 4
+    ((65535, 27, "bfloat16", False, 4, 8), "slab"),
+    ((65536, 27, "float32", False, 4, 8), "plain"),
+    ((65536, 27, "float32", True, 4, 8), "fused"),
+    ((65536, 8, "bfloat16", True, 4, 8), "fused"),
+    ((600000, 27, "float32", True, 4, 8), "fused"),       # table over JAX's 8 MiB
+    ((4095, 27, "float32", True, 64, 64), "plain"),       # wide and short: route 3
+    ((4096, 27, "float32", True, 64, 64), "fused"),
 ]
 
 
 @pytest.mark.parametrize("args,route", ROUTES)
 def test_gather_conv_dispatch(monkeypatch, args, route):
-    """sparse_ops.gather_conv keeps the JAX dispatch rule for rule
-    (smart_tree_tpu/core/sparse_ops.py:120-132)."""
-    m, k3, precision, fused, cap_hint = args
+    """sparse_ops.gather_conv keeps the JAX package's routes in their order
+    (smart_tree_tpu/core/sparse_ops.py:120-132) at the H100's thresholds."""
+    m, k3, precision, fused, cin, cout = args
     taken = []
 
     def spy(name):
@@ -95,12 +103,12 @@ def test_gather_conv_dispatch(monkeypatch, args, route):
 
     monkeypatch.setattr(tslab, "slab_gather_conv", spy("slab"))
     monkeypatch.setattr(tfused, "fused_gather_gemm", spy("fused"))
-    feats = torch.zeros((4, 4))
+    feats = torch.zeros((4, cin))
     rb = torch.full((m, k3), -1, dtype=torch.int32)
-    w = torch.zeros((k3, 4, 8))
-    cfg = tops.ConvConfig(precision, cap_hint=cap_hint, fused=fused)
+    w = torch.zeros((k3, cin, cout))
+    cfg = tops.ConvConfig(precision, fused=fused)
     out = tops.gather_conv(feats, rb, w, cfg)
-    assert out.shape == (m, 8)
+    assert out.shape == (m, cout)
     assert taken == ([] if route == "plain" else [route])
 
 

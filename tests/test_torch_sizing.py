@@ -2,8 +2,8 @@
 read from the card's memory, the JAX package's 12 GiB and model on the CPU,
 the footprint model with the card's terms against the JAX one, forwards
 under two batch ceilings against each other and against the JAX forward,
-the bench's batches following `max_batch_capacity`, and overflow reruns
-held to the budget (at smaller level capacities, or split in halves).
+the bench's batches following `max_batch_capacity`, and exact plans held
+to the budget (a batch past it split in halves before it runs).
 
 The card's properties are a stand-in here (monkeypatched
 `torch.cuda.get_device_properties`); chip_smoke.py phase 20 reads the real
@@ -38,8 +38,8 @@ GRID = dict(voxel_size=0.05, block_size=0.5, buffer_size=0.05, batch_size=8,
 TWO_BATCH_CEILING = 2048
 # 1,500 points scattered over a 40^3 grid of 2.5 cm voxels, eight 0.5 m
 # blocks: one batch of capacity 2048 whose level 1 holds several times its
-# voxels, so that at factor 0.5 it reruns with levels past the batch
-# capacity
+# voxels (the JAX package reruns it at factor 0.5 with levels past the batch
+# capacity; the port's exact plan holds them)
 SPARSE = dict(voxel_size=0.025, block_size=0.5, buffer_size=0.05, batch_size=8,
               precision="float32", level_capacity_factor=0.5)
 
@@ -176,26 +176,6 @@ def test_level_caps_default_to_the_schedule():
     assert big["level_capacities"] == (1 << 16, 1 << 18, 1 << 16, 1 << 16)
 
 
-def test_rerun_caps_held_to_the_budget():
-    """The JAX package's rerun capacities where their modelled peak fits the
-    budget, each level's count rounded up to a power of two where only those
-    fit, and those marked as not fitting (a split) where neither does."""
-    counts, caps = [60000, 100000, 20000, 9000], [65536, 32768, 16384, 8192]
-    jax_caps = jinf.ModelInference._retry_caps(counts, caps)
-    tight = (65536, 131072, 32768, 16384)   # each count's pow2
-    assert jax_caps == (65536, 262144, 65536, 32768)
-
-    def peak(level_caps):
-        return memory.estimate_forward_hbm(65536, PLANES, in_flight=2,
-                                           level_caps=level_caps)["peak"]
-
-    for budget, expected in ((peak(jax_caps), (jax_caps, True)),
-                             (peak(jax_caps) - 1, (tight, True)),
-                             (peak(tight), (tight, True)), (peak(tight) - 1, (tight, False))):
-        mi = ModelInference(WEIGHTS, device="cpu", hbm_budget_bytes=budget)
-        assert mi._rerun_caps(65536, counts, caps) == expected, budget
-
-
 def _sparse_cloud():
     rng = np.random.default_rng(0)
     cells = rng.choice(40 ** 3, 1500, replace=False)
@@ -224,21 +204,25 @@ def test_halve_batch():
 
 @pytest.mark.parametrize("mode", ["predict", "culled"])
 def test_rerun_past_the_budget_splits(mode):
-    """A batch whose rerun would pass the budget runs as two halves, which
-    give the predictions of the whole batch's rerun under a larger budget."""
+    """An exact plan past the budget splits before it runs: a batch whose
+    exact levels (level 1 several times the batch's voxels) pass a budget
+    sized for its capacity at factor 1.0 runs no UNet pass whole, but two
+    halves of its blocks, each planned afresh within the budget, which give
+    the predictions of the whole batch's one pass under a larger budget."""
     cloud = _sparse_cloud()
     budget = memory.estimate_forward_hbm(2048, PLANES, 1.0, in_flight=2)["peak"]
-    outs, runs = [], []
+    outs, runs, passes = [], [], []
     for hbm in (12 * GIB, budget):
         mi = ModelInference(WEIGHTS, device="cpu", hbm_budget_bytes=hbm, compact_transfers=False,
                             medial_classes=(0,) if mode == "culled" else None, **SPARSE)
         if mode == "culled":
             mi.compact_transfers = True
+        assert mi.max_batch_capacity >= 2048   # the tiler's one batch, whole
         name = "_run_batch" if mode == "predict" else "_run_batch_culled"
         inner = getattr(mi, name)
         calls = []
-        setattr(mi, name, lambda vb, level_caps=None, inner=inner, calls=calls: (
-            calls.append((len(vb.coords), level_caps)), inner(vb, level_caps))[1])
+        setattr(mi, name, lambda vb, inner=inner, calls=calls: (
+            calls.append(len(vb.coords)), inner(vb))[1])
         runs.append(calls)
         if mode == "predict":
             p = mi.predict(cloud)
@@ -246,14 +230,16 @@ def test_rerun_past_the_budget_splits(mode):
         else:
             c = mi.forward(cloud)
             outs.append(_sorted(c.xyz, c.medial_vector, c.class_l))
-    whole, split = runs
-    assert whole[0] == (2048, None) and max(max(c[1]) for c in whole[1:]) > 2048
-    # the first run, then the halves, each planned afresh and rerun within the budget
-    assert split[0] == (2048, None) and sum(1 for c in split if c[1] is None) == 3
-    for cap, level_caps in split[1:]:
-        assert cap <= 2048
-        if level_caps is not None:
-            assert memory.estimate_forward_hbm(cap, PLANES, in_flight=2,
-                                               level_caps=level_caps)["peak"] <= budget
+        passes.append(list(mi.plan_rows))
+    (whole,), split = passes
+    assert runs[0] == [2048] and whole[1] > 2 * whole[0]   # one pass, level 1 past level 0
+    assert memory.estimate_forward_hbm(whole[0], PLANES, in_flight=2,
+                                       level_caps=whole)["peak"] > budget
+    # the first run planned the whole batch, then the halves ran, each within the budget
+    assert runs[1][0] == 2048 and len(runs[1]) >= 3 and all(c <= 2048 for c in runs[1])
+    assert len(split) >= 2 and whole not in split and sum(r[0] for r in split) == whole[0]
+    for rows in split:
+        assert memory.estimate_forward_hbm(rows[0], PLANES, in_flight=2,
+                                           level_caps=rows)["peak"] <= budget
     for a, b in zip(*outs):
         np.testing.assert_allclose(a, b, **MODEL_TOL)

@@ -216,7 +216,6 @@ def test_hand_kernel_wrappers_refuse_inputs_that_need_a_gradient(wrapper, which)
                          ids=["slab-shaped-bf16", "fused-opted-in"])
 def test_gather_conv_takes_route_3_when_a_gradient_is_needed(monkeypatch, cfg):
     feats, rb, w = _conv_inputs()
-    monkeypatch.setattr(sparse_ops, "SLAB_MIN_ROWS", 16)  # 64 rows now qualify
     calls = []
     for mod, fn in ((slab_conv, "slab_gather_conv"), (fused_conv, "fused_gather_gemm")):
         orig = getattr(mod, fn)

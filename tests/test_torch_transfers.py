@@ -1,7 +1,8 @@
 """Port parity for the compact and culled transfer paths of ModelInference
 (smart_tree_tpu_torch/infer/inference.py) and the host pieces they stand
 on: the host key packing, the compact uploads of VoxelBatch, the quantised
-payload, the device-side pad, the overflow retry and the in-flight window.
+payload, the device-side pad, one run a batch at any level capacity factor
+(exact plans) and the in-flight window.
 
 Tolerances of the forward parity (both packages compute fp32 heads that
 agree within rtol 1e-3 / atol 1e-4, then both quantise them):
@@ -324,23 +325,22 @@ def test_culled_equals_compact_on_branch_rows(runs):
 
 
 def test_link_bytes_are_the_staged_encodings(runs):
-    """Bytes over the link in one forward (overflow reruns included): each
-    run of the batch uploads exactly the staged sorted encoding (plus the
-    mask bits when culled), smaller than the full path's encoding of the same
-    batch, and the culled download is smaller than the compact one."""
+    """Bytes over the link in one forward: the one run of the batch uploads
+    exactly the staged sorted encoding (plus the mask bits when culled),
+    smaller than the full path's encoding of the same batch, and the culled
+    download is smaller than the compact one."""
     vb, moved = runs["vb"], runs["bytes"]
     res_dtype = np.int8 if runs["kind"] == "int8" else np.float16
     skeys, res, orig, _, bits = vb.compact_upload_sorted(4096, res_dtype, with_mask=True)
     per_run = skeys.nbytes + res.nbytes + orig.nbytes
-    reruns = moved["compact"]["upload"] // per_run
-    assert reruns >= 1 and moved["compact"]["upload"] == reruns * per_run
-    assert moved["culled"]["upload"] == reruns * (per_run + bits.nbytes)
+    assert moved["compact"]["upload"] == per_run
+    assert moved["culled"]["upload"] == per_run + bits.nbytes
     full = sum(a.nbytes for a in vb.compressed_xyz_upload()) + vb.valid.nbytes
     assert per_run < full
     assert moved["culled"]["download"] < moved["compact"]["download"]
 
 
-# ---------------------------------------------------------------- retry, window
+# ---------------------------------------------------------------- one run, window
 
 @pytest.mark.parametrize("medial", [None, [0]], ids=["compact", "culled"])
 def test_forced_overflow_reruns_the_same_mode_and_gives_the_default_result(medial, monkeypatch):
@@ -349,13 +349,17 @@ def test_forced_overflow_reruns_the_same_mode_and_gives_the_default_result(media
     forced = ModelInference(WEIGHTS["fp16"], device="cpu", medial_classes=medial,
                             level_capacity_factor=0.1)
     name = "_run_batch_culled" if medial else "_run_batch_compact"
-    calls = []
-    run = getattr(forced, name)
-    monkeypatch.setattr(forced, name, lambda vb, level_caps=None:
-                        calls.append(level_caps) or run(vb, level_caps))
+    calls, passes = [], []
+    run, unet = getattr(forced, name), forced._unet
+    monkeypatch.setattr(forced, name, lambda vb: calls.append(len(vb.coords)) or run(vb))
+    monkeypatch.setattr(forced, "_unet", lambda x, plan: passes.append(x.capacity)
+                        or unet(x, plan))
     monkeypatch.setattr(forced, "_run_batch", lambda *a, **k: pytest.fail("full path"))
     a, b = forced.forward(cloud), default.forward(cloud)
-    assert calls[0] is None and len(calls) >= 2 and all(c is not None for c in calls[1:])
+    # the factor that made every level overflow is unused: one run and one
+    # UNet pass for the one batch, on the batch's active rows
+    (vb,) = tds.BlockTiler(cloud, 0.01, 4.0, 0.4).batches(4, max_capacity=forced.max_batch_capacity)
+    assert calls == [len(vb.coords)] and passes == [vb.key_order()[2]]
     for f in ("xyz", "rgb", "medial_vector", "class_l"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
 

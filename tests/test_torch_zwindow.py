@@ -173,8 +173,7 @@ def test_z9_conv_never_takes_a_hand_kernel(monkeypatch):
 
     monkeypatch.setattr(sparse_ops.slab_conv, "slab_gather_conv", refuse)
     monkeypatch.setattr(sparse_ops.fused_conv, "fused_gather_gemm", refuse)
-    cfg = ConvConfig("bfloat16", fused=True)
-    monkeypatch.setattr(ConvConfig, "slab_min_rows", property(lambda self: 0))
+    cfg = ConvConfig("bfloat16", fused=True)   # every bf16 row count takes the slab kernel
     out = gather_conv(tx.feats, rb9, torch.from_numpy(w), cfg)
     assert out.shape == (CAP, COUT)
     with pytest.raises(ValueError, match="27 kernel offsets"):
