@@ -36,14 +36,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
   6. fp32 forward on the card against the CPU forward on a small tree (the
      CPU path is the one the tests hold against the JAX package);
   7. the skeleton stages on the card against the CPU on the small tree's
-     branch points with their ground-truth medial vectors: outlier filter,
-     cell reduction, KNN graph, components, SSSP, root distances, and
-     Skeletonizer.forward as a whole;
+     branch points with their ground-truth medial vectors: outlier filter
+     (on the card through the count kernel), cell reduction, KNN graph,
+     components, SSSP, root distances, and Skeletonizer.forward as a whole;
   8. the whole pipeline on the bench tree (the default configuration but
      bf16): Pipeline.process_cloud into a
      temporary directory, one warm-up and one timed run; the slab kernel
-     must have launched inside it, the skeleton must have branches, and the
-     four PLYs must hold the counts the skeleton implies;
+     and the outlier filter's count kernel must have launched inside it,
+     the skeleton must have branches, and the four PLYs must hold the
+     counts the skeleton implies;
   9. the default configuration (fp32) on the small tree through Pipeline,
      the card against the CPU;
  10. grid KNN: on the bench tree's reduced medial points (K = 16, r = the
@@ -118,7 +119,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (synthetic-r2) on the card; (d) the forest scan at bench_scan's
      defaults (6 trees, 8,000 points/m^2, bf16) with
      the skeleton stage: one warm-up and one timed forward, the slab kernel
-     launched, finite outputs, at least one skeleton and 6 branches, every
+     and the filter's count kernel launched, finite outputs, at least one skeleton and 6 branches, every
      skeleton point inside the scan's bounds +-1 m; stage seconds, graph
      vertices, KNN route and peak memory; `knn` and `grid_knn` on the
      forest's reduced medial points held against float64 as in phase 10;
@@ -180,14 +181,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      fp32's (at least 99 % equal); (d) fp32 card against CPU on the small
      tree; (e) the forest's densest blocks, one pass a batch, beside phase
      17's whole forest scan (its passes a forward equal its batches); an
-     `{"exact_plans": ...}` line.
+     `{"exact_plans": ...}` line;
+ 22. the outlier filter's count (`radius_count_phase`): on the branch points
+     of phase 10's bench-tree forward and of phase 17's forest scan, radii
+     clamped at 0.02 m as the skeletonizer clamps them, the count kernel
+     (csrc/radius_count.cu) launched twice and its plain version on the
+     card, equal int32 bits; the shell it leaves and `_exact_keep` on it;
+     the wrapper, the bare kernel, the plain version and the whole filter
+     timed by CUDA events beside the bound; the count on cells of the
+     largest reach (equal counts, its time); on the bench tree also the JAX
+     formulation the filter used before (`knn.radius_count`), its shell
+     and its `_exact_keep`; a `{"radius_count": ...}` line.
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
 parallel phase's, the last modules', the tools', the probes', the bench's,
-the sizing's, the dispatch crossover's and the exact plans' numbers, and as
-the last line {"ok": true, "device": {...}}.
+the sizing's, the dispatch crossover's, the exact plans' and the radius
+count's numbers, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -339,6 +350,9 @@ FOREST_DENSE_BLOCKS = 8
 CROSSOVER_ROWS = (37, 100, 256, 1001, 4096, 16411, 65536, 262147, 1048576, 4194304)
 CROSSOVER_TABLE_BYTES = 32 << 20
 CROSSOVER_CHECK_ROWS = 262144
+# phase 22: the outlier filter's count as the skeletonizer calls it
+NB_POINTS = 8
+MIN_FILTER_RADIUS = 0.02
 
 
 T_START = time.perf_counter()
@@ -1100,11 +1114,13 @@ def captured_json(fn) -> list:
 def tools_phase(torch, np, card):
     """Phase 17: the port's user tools (smart_tree_tpu_torch/tools/) on the
     card, through their entry points. Returns (the `tools` line, the slab
-    kernel's launches in the bf16 evaluations, in the forest scan)."""
+    kernel's launches in the bf16 evaluations, in the forest scan, and the
+    forest's branch points and radii as the skeleton stage got them)."""
     import contextlib
 
     from smart_tree_tpu_torch.core import slab_conv
     from smart_tree_tpu_torch.data.dataset import BlockTiler, TreeDataset
+    from smart_tree_tpu_torch.neighbors import grid_count
     from smart_tree_tpu_torch.infer.inference import ModelInference
     from smart_tree_tpu_torch.tools import (bench_scan, convert_checkpoint, diagnose_direction,
                                             diagnose_e2e, evaluate, make_synthetic_dataset)
@@ -1225,10 +1241,14 @@ def tools_phase(torch, np, card):
               "seconds": time.perf_counter() - t0}
     del tiler
     slab_conv.slab_gather_conv.launches = 0
+    grid_count.grid_radius_count.launches = 0
     report, lc, skel = bench_scan.scan(cloud, FOREST_TREES, skeletonize=True)
     forest_launches = slab_conv.slab_gather_conv.launches
+    forest_count_launches = grid_count.grid_radius_count.launches
     if forest_launches == 0:
         raise AssertionError("the forest scan never launched the slab kernel")
+    if forest_count_launches == 0:
+        raise AssertionError("the forest scan's outlier filter never launched the count kernel")
     if report["unet_passes"] != n_batches:
         raise AssertionError(f"forest scan: {report['unet_passes']} UNet passes a forward for "
                              f"{n_batches} batches")
@@ -1259,6 +1279,7 @@ def tools_phase(torch, np, card):
     del fp, fy, rep
     report.update(make_forest_s=make_s, host_tiling=tiling, extent_m=(cloud.xyz.max(0) - cloud.xyz.min(0)).tolist(),
                   output_voxels=len(lc), slab_launches=forest_launches,
+                  count_launches=forest_count_launches,
                   skeletons_per_component=[len(s.branches) for s in skel.skeletons])
     result["forest_scan"] = report
     result["phase_s"] = time.perf_counter() - t_phase
@@ -1266,7 +1287,8 @@ def tools_phase(torch, np, card):
     log(f"forest scan: {report}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return result, sum(r3_launches.values()), forest_launches
+    return (result, sum(r3_launches.values()), forest_launches,
+            (branch.medial_pts, branch.radius))
 
 
 def probes_phase(torch, np, card):
@@ -2000,6 +2022,119 @@ def exact_plan_phase(torch, np, card, forest_scan=None):
     return result
 
 
+def count_bound(n: int, m: int, dst_is_src: bool, pairs: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time for the radius count of
+    n queries against m points. Bytes: each distinct input read once (a
+    query's point 12 bytes, radius 4, mask 1; the dst points 12 and mask 1
+    only where they are other tensors than the queries) and the two int32
+    counts (8) written once, over the card's memory rate. Operations: the
+    pairs this run's data needs, at least `possible` of them a row (each
+    counted pair is compared), 10 fp32 operations a pair (three differences,
+    three squares, two sums, two comparisons) over the fp32 peak."""
+    t_bytes = (25 * n + (0 if dst_is_src else 13 * m)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 10.0 * pairs / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def radius_count_phase(torch, np, card, clouds):
+    """Phase 22: the cell-sorted radius count (neighbors/grid_count.py, the
+    CUDA kernel csrc/radius_count.cu) on the skeleton stage's own inputs,
+    `clouds` = {name: (medial points, predicted radii)} on the host (the bench
+    tree's and the forest scan's branch points), radii clamped at
+    MIN_FILTER_RADIUS as the skeletonizer clamps them. For each: two kernel
+    launches and the plain version on the card, equal int32 bits; the new
+    shell and its `_exact_keep`; the wrapper, the bare kernel, the plain
+    version, `_exact_keep` on the shell and `outlier_removal` as a whole
+    timed by CUDA events; the bound; the count on cells of the largest reach
+    (grid_knn's edge, set by patching `grid_count._edge`) in place of the
+    median: the same counts, and its time.
+    On the bench tree also the JAX
+    formulation the filter used before, `knn.radius_count`, its shell and
+    its `_exact_keep` (the forest's takes some 30 s: scripts/profile_filter.py
+    measures it). Returns (the `radius_count` line, the kernel's rows)."""
+    from smart_tree_tpu_torch.neighbors import grid_count
+    from smart_tree_tpu_torch.neighbors.knn import radius_count
+    from smart_tree_tpu_torch.skeleton import filter as filter_mod
+
+    t_phase = time.perf_counter()
+    rows = []
+    for name, (pts_h, radii_h) in clouds.items():
+        pts = torch.from_numpy(np.ascontiguousarray(pts_h, np.float32)).cuda()
+        radii = torch.from_numpy(np.ascontiguousarray(radii_h, np.float32)).cuda().reshape(-1)
+        radii = radii.clamp_min(MIN_FILTER_RADIUS)
+        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+        args = (pts, pts, radii, valid, valid)
+        n = pts.shape[0]
+
+        def count():
+            return grid_count.grid_radius_count(*args, cap=NB_POINTS)
+
+        got, again = count(), count()
+        ref = grid_count.grid_radius_count_plain(*args, cap=NB_POINTS)
+        torch.cuda.synchronize()
+        for a, b, c, what in zip(got, again, ref, ("certain", "possible")):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"{name}: the count kernel's {what} differs between two "
+                                     "launches or from its plain version")
+        err = max(int((a - c).abs().max()) for a, c in zip(got, ref))
+        # the same count on cells of the largest reach, grid_knn's choice of
+        # edge: other cells, the same counts
+        g = grid_count.build_grid(*args)
+        wide = float(g.reach.max())
+        median_edge = grid_count._edge
+        grid_count._edge = lambda reach, counted, extent: wide
+        try:
+            if float(grid_count.build_grid(*args).cell) != float(
+                    torch.tensor(wide, dtype=torch.float32)):
+                raise AssertionError(f"{name}: the patched cell edge was not used")
+            if not all(torch.equal(a, b) for a, b in zip(got, count())):
+                raise AssertionError(f"{name}: the count differs on cells of the largest reach")
+            wide_ms = cuda_time_ms(torch, count, iters=3, warmup=1)
+        finally:
+            grid_count._edge = median_edge
+        certain, possible = got
+        bound_ms, bound_by = count_bound(n, n, True, int(possible.sum()))
+        sure = certain >= NB_POINTS
+        shell = torch.nonzero((possible >= NB_POINTS) & ~sure).squeeze(1)
+        order = grid_count._query_order(pts, g)
+        out = (torch.empty_like(certain), torch.empty_like(certain))
+        slow = 2 if name == "forest" else 5   # the plain version takes seconds there
+        row = {
+            "cloud": name, "n": n, "cell_m": float(g.cell), "grid": list(g.dims),
+            "shell_rows": int(shell.numel()), "sure_rows": int(sure.sum()),
+            "max_abs_err": err,
+            "ms": cuda_time_ms(torch, count, iters=10, warmup=1),
+            "widest_cell_m": wide,
+            "widest_cell_ms": wide_ms,
+            "kernel_ms": cuda_time_ms(torch, lambda: grid_count._launch(
+                pts, order, g, NB_POINTS, *out), iters=10, warmup=1),
+            "plain_ms": cuda_time_ms(torch, lambda: grid_count.grid_radius_count_plain(
+                *args, cap=NB_POINTS), iters=slow, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "exact_keep_ms": cuda_time_ms(torch, lambda: filter_mod._exact_keep(
+                pts, radii, pts[shell], radii[shell], NB_POINTS, valid), iters=3, warmup=1)
+            if shell.numel() else 0.0,
+            "filter_ms": cuda_time_ms(torch, lambda: filter_mod.outlier_removal(
+                pts, radii, NB_POINTS), iters=3, warmup=1),
+        }
+        if name == "bench":
+            lo, hi = radius_count(*args, cap=NB_POINTS)
+            old = torch.nonzero((hi >= NB_POINTS) & ~(lo >= NB_POINTS)).squeeze(1)
+            row.update(
+                radius_count_ms=cuda_time_ms(torch, lambda: radius_count(
+                    *args, cap=NB_POINTS), iters=3, warmup=1),
+                radius_count_shell_rows=int(old.numel()),
+                radius_count_exact_keep_ms=cuda_time_ms(torch, lambda: filter_mod._exact_keep(
+                    pts, radii, pts[old], radii[old], NB_POINTS, valid), iters=3, warmup=1),
+            )
+        log(f"radius count {name}: {row} ({card})")
+        rows.append(row)
+        del pts, radii, valid, args, got, again, ref, g, order, out
+    torch.cuda.empty_cache()
+    return {"card": card, "clouds": rows, "phase_s": time.perf_counter() - t_phase}, rows
+
+
 def main() -> int:
     import torch
 
@@ -2235,6 +2370,7 @@ def main() -> int:
 
     # 7. the skeleton stages, the card against the CPU
     from smart_tree_tpu_torch.data.file import ply_element_counts
+    from smart_tree_tpu_torch.neighbors import grid_count
     from smart_tree_tpu_torch.scripts.profile_pipeline import bench_pipeline, timed_run
     from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
     from smart_tree_tpu_torch.utils.configs import default_pipeline_config, instantiate
@@ -2268,12 +2404,16 @@ def main() -> int:
         timed_run(pipeline, raw_cloud)  # warm-up (raises hop_cap if the strict check asks)
         slab_conv.slab_gather_conv.launches = 0
         fused_conv.fused_gather_gemm.launches = 0
+        grid_count.grid_radius_count.launches = 0
         torch.cuda.reset_peak_memory_stats()
         pipe_stats, skeleton = timed_run(pipeline, raw_cloud)
         pipe_slab_launches = slab_conv.slab_gather_conv.launches
+        pipe_count_launches = grid_count.grid_radius_count.launches
         pipe_stats["peak_bytes"] = torch.cuda.max_memory_allocated()
         if pipe_slab_launches == 0:
             raise AssertionError("the bf16 pipeline never launched the slab kernel")
+        if pipe_count_launches == 0:
+            raise AssertionError("the pipeline's outlier filter never launched the count kernel")
         branches = [b for sk in skeleton.skeletons for b in sk.branches.values()]
         if not skeleton.skeletons or max(len(sk.branches) for sk in skeleton.skeletons) < 2:
             raise AssertionError("the pipeline gave no skeleton with two branches")
@@ -2295,6 +2435,7 @@ def main() -> int:
             if size < 12 * counts["vertex"]:
                 raise AssertionError(f"{name}: {size} bytes is short of its vertices")
     pipe_stats.update(card=card, points=len(raw_cloud), slab_launches=pipe_slab_launches,
+                      count_launches=pipe_count_launches,
                       skeleton_length_m=skeleton_length(skeleton),
                       ply_elements=expected)
     log(f"pipeline: {pipe_stats}")
@@ -2329,6 +2470,7 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     branch16 = out16.filter_by_class([0])
+    bench_medial = (branch16.medial_pts, branch16.radius)
     mp, mr, my = up(branch16.medial_pts), up(branch16.radius), up(branch16.xyz[:, 1])
     keep = outlier_removal(mp, mr, nb_points=8, min_radius=0.02)
     rep, _ = medial_reduce(mp, my, keep, 0.01)
@@ -2554,7 +2696,7 @@ def main() -> int:
                                 scripts16, card)
 
     # 17. the user tools
-    tools, eval_launches, forest_launches = tools_phase(torch, np, card)
+    tools, eval_launches, forest_launches, forest_medial = tools_phase(torch, np, card)
 
     # 18. the training probes; a failed check fails the script after its line
     probes, probe_launches, probe_problems = probes_phase(torch, np, card)
@@ -2570,6 +2712,11 @@ def main() -> int:
     # 21. exact plans on the card
     torch.cuda.empty_cache()
     exact_plans = exact_plan_phase(torch, np, card, tools["forest_scan"])
+
+    # 22. the outlier filter's count kernel on the bench tree's and the forest's inputs
+    radius_counts, count_rows = radius_count_phase(
+        torch, np, card, {"bench": bench_medial, "forest": forest_medial})
+    del forest_medial
 
     def summed(rows, key):
         return sum(r[key] for r in rows)
@@ -2616,6 +2763,20 @@ def main() -> int:
               launches_per_culled_fused_forward=culled_launches["fused_launches"],
               launches_in_probes=probe_launches["fused_gather_gemm"],
               forward_kernel_ms=fused_forward_ms),
+        {
+            "name": "grid_radius_count", "route": "cuda",
+            "source": "smart_tree_tpu_torch/csrc/radius_count.cu",
+            "replaces": "smart_tree_tpu/neighbors/knn.py:256",
+            "launches": pipe_count_launches,
+            "launches_in_forest_scan": tools["forest_scan"]["count_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in count_rows),
+            **{k: summed(count_rows, k) for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in count_rows)
+            else "operations",
+            "library_ms": None,
+            "radius_count_ms": count_rows[0]["radius_count_ms"],
+            "shapes": count_rows,
+        },
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({
@@ -2644,6 +2805,7 @@ def main() -> int:
     print(json.dumps({"sizing": sizing}), flush=True)
     print(json.dumps({"dispatch": crossover}), flush=True)
     print(json.dumps({"exact_plans": exact_plans}), flush=True)
+    print(json.dumps({"radius_count": radius_counts}), flush=True)
     if probe_problems:
         raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,12 +25,13 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("slab_conv.cu", "fused_conv.cu")
+_SOURCES = ("slab_conv.cu", "fused_conv.cu", "radius_count.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p, so ctypes does not
 # cut 64-bit addresses to int
 _SIGNATURES = {
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "st_slab_conv_scratch_bytes": [_I, _I],
     # feats, n, cin, rulebook, m, k3, weights, cout, out, stream
     "st_fused_conv": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P],
+    # src, n, order, lo2, hi2, reach, keys, pts, m, ox, oy, oz, h, gx, gy, gz,
+    # cap, certain, possible, stream
+    "st_radius_count": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,
+                        _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -4,16 +4,20 @@
 radius.
 
 "All K nearest within r_i" is "at least K points within r_i", a counting
-query with no selection: the count runs as tiled distance blocks with a
-numerical margin (`neighbors.knn.radius_count`), and only the thin shell of
-points whose decision straddles the margin is resolved with the exact KNN.
+query with no selection: the count visits only the cells around each point
+and stops at K (`neighbors.grid_count.grid_radius_count`, a CUDA kernel on
+the card), with a margin relative to r_i^2, and only the thin shell of points
+whose decision straddles the margin is resolved with the exact KNN, as the
+JAX package resolves its own, wider shell. The keep mask is the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..neighbors.knn import knn, radius_count
+from ..neighbors.grid_count import grid_radius_count
+from ..neighbors.knn import knn
 
 
 def _exact_keep(points, radii, queries, qradii, nb_points: int, valid):
@@ -39,7 +43,7 @@ def outlier_removal(points, radii, nb_points: int = 8, valid=None,
     if points.shape[0] == 0:
         return valid
 
-    certain, possible = radius_count(
+    certain, possible = grid_radius_count(
         points, points, radii, src_valid=valid, dst_valid=valid, cap=nb_points
     )
     sure = certain >= nb_points

@@ -6,7 +6,9 @@ Imports no JAX, so it runs on a GPU host without it:
 
 (--noconftest: tests/conftest.py configures JAX). Without a card every test
 here skips. Tolerances: slab kernel atol 2e-4 (bf16 operands on both sides,
-fp32 summation order only); fused kernel rtol 1e-4 / atol 1e-5 (fp32).
+fp32 summation order only); fused kernel rtol 1e-4 / atol 1e-5 (fp32);
+radius count kernel equal int32 bits (the plain version's arithmetic, op by
+op).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 from smart_tree_tpu_torch.core import fused_conv, slab_conv
 from smart_tree_tpu_torch.core.plan import build_plan
 from smart_tree_tpu_torch.core.sparse_tensor import SparseVoxelTensor
+from smart_tree_tpu_torch.neighbors import grid_count
 
 pytestmark = pytest.mark.cuda
 
@@ -215,6 +218,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # Cin 132 is past the fused kernel's 128
         fused_conv.fused_gather_gemm(torch.zeros((10, 132), device=cuda), rb,
                                      torch.zeros((27, 132, 8), device=cuda))
+
+
+@pytest.mark.parametrize("cap,cell_scale", [(8, None), (1 << 20, None), (8, 1 / 8)],
+                         ids=["cap8", "unsaturated", "small-cells"])
+def test_radius_count_kernel_matches_plain(cuda, cap, cell_scale, monkeypatch):
+    """The kernel against its plain version on the card, equal int32 bits:
+    clustered points 30 m from the origin with duplicates, a mask, and
+    infinite, huge and NaN radii among the rest; then through the filter,
+    the card's keep mask against the CPU's."""
+    from smart_tree_tpu_torch.skeleton.filter import outlier_removal
+
+    rng = np.random.default_rng(21)
+    centres = rng.uniform(-5, 5, size=(40, 3))
+    p = centres[rng.integers(0, 40, 20000)] + rng.normal(scale=0.1, size=(20000, 3))
+    p[10000:12000] = p[:2000]
+    p = (p + np.array([30.0, 0.0, 10.0])).astype(np.float32)
+    radii = rng.uniform(0.02, 0.2, len(p)).astype(np.float32)
+    radii[[5, 6]] = np.inf
+    radii[7] = 3e19
+    radii[8] = np.nan
+    valid = rng.uniform(size=len(p)) > 0.1
+    valid[5:9] = True
+    args = [torch.from_numpy(a).to(cuda) for a in (p, p, radii, valid, valid)]
+    if cell_scale is not None:
+        edge = float(np.median(radii[:100])) * cell_scale
+        monkeypatch.setattr(grid_count, "_edge", lambda reach, counted, extent: edge)
+    grid_count.grid_radius_count.launches = 0
+    got = grid_count.grid_radius_count(*args, cap=cap)
+    again = grid_count.grid_radius_count(*args, cap=cap)
+    ref = grid_count.grid_radius_count_plain(*args, cap=cap)
+    torch.cuda.synchronize()
+    assert grid_count.grid_radius_count.launches == 2
+    for a, b, c in zip(got, again, ref):
+        assert a.dtype == torch.int32 and torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[0][5]) == min(int(valid.sum()), cap) and int(got[1][8]) == 0
+    keep = outlier_removal(args[0], args[2], 8, args[3], 0.02)
+    keep_cpu = outlier_removal(torch.from_numpy(p), torch.from_numpy(radii), 8,
+                               torch.from_numpy(valid), 0.02)
+    assert torch.equal(keep.cpu(), keep_cpu)
 
 
 def test_fit_smoke_on_the_card_matches_the_cpu(cuda):

@@ -76,7 +76,7 @@ def test_outlier_removal_resolves_the_shell_exactly(monkeypatch):
         n = src.shape[0]
         return torch.zeros(n, dtype=torch.int32), torch.full((n,), cap, dtype=torch.int32)
 
-    monkeypatch.setattr(tfilter, "radius_count", undecided)
+    monkeypatch.setattr(tfilter, "grid_radius_count", undecided)
     got = tfilter.outlier_removal(_t(p), _t(r), 8)
     d = np.sqrt(((p[:, None].astype(np.float64) - p[None]) ** 2).sum(-1))
     kth = np.sort(d, axis=1)[:, 7]
