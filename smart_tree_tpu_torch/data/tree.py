@@ -19,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..utils.queries import pts_to_nearest_tube
+from ..utils.trace import span
 from .branch import BranchSkeleton
 from .tube import Tube, collate_tubes
 
@@ -41,18 +42,21 @@ class TreeSkeleton:
         for branch in self.branches.values():
             if branch.parent_id not in branch_ids:
                 continue
-            parent = self.branches[branch.parent_id]
-            tubes = parent.to_tubes()
-            if not tubes or len(branch) == 0:
-                continue
-            # one point against one branch's tubes, host arrays in and out:
-            # asked of the CPU, the work is smaller than a launch
-            v, idx, _ = pts_to_nearest_tube(
-                branch.xyz[0].reshape(-1, 3), collate_tubes(tubes), device="cpu"
-            )
-            connection_pt = branch.xyz[0].reshape(-1, 3) + v[0]
-            branch.xyz = np.concatenate([connection_pt, branch.xyz])
-            branch.radii = np.concatenate([branch.radii[[0]], branch.radii])
+            # a profiler range a branch names the card's idle time here
+            # (utils/trace.py)
+            with span(None, "post.repair_branch"):
+                parent = self.branches[branch.parent_id]
+                tubes = parent.to_tubes()
+                if not tubes or len(branch) == 0:
+                    continue
+                # one point against one branch's tubes, host arrays in and
+                # out: asked of the CPU, the work is smaller than a launch
+                v, idx, _ = pts_to_nearest_tube(
+                    branch.xyz[0].reshape(-1, 3), collate_tubes(tubes), device="cpu"
+                )
+                connection_pt = branch.xyz[0].reshape(-1, 3) + v[0]
+                branch.xyz = np.concatenate([connection_pt, branch.xyz])
+                branch.radii = np.concatenate([branch.radii[[0]], branch.radii])
 
     def prune(self, min_radius: float, min_length: float, root_id=None) -> "TreeSkeleton":
         root_id = min(self.branches.keys()) if root_id is None else root_id

@@ -91,6 +91,7 @@ from ..data.cloud import Cloud
 from ..data.dataset import BlockTiler, halve_batch, stage_rows
 from ..device import resolve_device
 from ..nn.convert import load_model, load_weights
+from ..utils.trace import span
 
 log = logging.getLogger(__name__)
 
@@ -177,9 +178,32 @@ class _Split:
     def __init__(self, parts):
         self.parts = parts
 
-    def collect(self, collect, sinks) -> None:
-        for half, out in self.parts:
-            collect(half, out, sinks)
+
+def _collect_half(read):
+    """A collect half from `read(self, vb, out, sinks)`: a `_Split`'s halves
+    in turn, any other batch read inside the `infer.collect` span."""
+
+    @functools.wraps(read)
+    def collect(self, vb, out, sinks):
+        if isinstance(out, _Split):
+            for half, part in out.parts:
+                collect(self, half, part, sinks)
+            return
+        with span(self._stats, "infer.collect", "infer.collect_s"):
+            read(self, vb, out, sinks)
+
+    return collect
+
+
+def _collated(batches, stats):
+    """The tiler's batches, each step of its generator (`collate_blocks`)
+    inside the `infer.collate` span."""
+    while True:
+        with span(stats, "infer.collate", "infer.collate_s"):
+            vb = next(batches, None)
+        if vb is None:
+            return
+        yield vb
 
 
 class ModelInference:
@@ -260,6 +284,9 @@ class ModelInference:
         )
         self._streams: list = []  # the in-flight slots' streams (`_slot`)
         self._sharded = None  # parallel.ShardedForward, made at first use
+        # the `stats` of the forward in progress, which the run and collect
+        # halves (and the replicas, shallow copies) add their spans to
+        self._stats = None
 
     # -- transfers ---------------------------------------------------------
 
@@ -267,12 +294,13 @@ class ModelInference:
         """Host arrays to the device. On a card from pinned memory without
         waiting: the copy is ordered on the current stream."""
         out = []
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            self.link_bytes["upload"] += t.nbytes
-            if self._copy_stream is not None:
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
+        with span(self._stats, "infer.upload", "infer.upload_s"):
+            for a in arrays:
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                self.link_bytes["upload"] += t.nbytes
+                if self._copy_stream is not None:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out.append(t)
         return out
 
     def _download(self, tensors, ready=None) -> _Download:
@@ -336,36 +364,39 @@ class ModelInference:
         origins) and build its sorted input tensor of the active rows alone
         and its exact plan on the device: (x, plan, order)."""
         n_valid = vb.n_valid
-        c16, res, orig = vb.compressed_xyz_upload()
+        with span(self._stats, "infer.pack", "infer.pack_s"):
+            c16, res, orig = vb.compressed_xyz_upload()
         c16, res, orig = self._upload(c16[:n_valid], res[:n_valid], orig)
-        coords, fv = make_features(c16, res, orig, self.voxel_size, self.feature_mode)
-        keys = pack_coords(coords, vb.spatial_shape, vb.batch_size)
-        n_act = int(np.count_nonzero(pack_coords_np(
-            vb.coords[:n_valid], vb.spatial_shape, vb.batch_size) != INVALID_KEY))
-        skeys, order = sort_keys(keys)
-        skeys, order = skeys[:n_act], order[:n_act]   # the active rows sort first
-        x = SparseVoxelTensor(skeys, fv[order], skeys != INVALID_KEY,
-                              tuple(vb.spatial_shape), vb.batch_size)
-        return x, self._plan(x), order
+        with span(self._stats, "infer.plan", "infer.plan_s"):
+            coords, fv = make_features(c16, res, orig, self.voxel_size, self.feature_mode)
+            keys = pack_coords(coords, vb.spatial_shape, vb.batch_size)
+            n_act = int(np.count_nonzero(pack_coords_np(
+                vb.coords[:n_valid], vb.spatial_shape, vb.batch_size) != INVALID_KEY))
+            skeys, order = sort_keys(keys)
+            skeys, order = skeys[:n_act], order[:n_act]   # the active rows sort first
+            x = SparseVoxelTensor(skeys, fv[order], skeys != INVALID_KEY,
+                                  tuple(vb.spatial_shape), vb.batch_size)
+            return x, self._plan(x), order
 
     @torch.no_grad()
     def _run_batch(self, vb):
         """Queue one full-download batch: the download of the sort order and
         the fp32 heads (or a `_Split`)."""
         x, plan, order = self._plan_batch(vb)
-        halves = self._halves(vb, plan)
+        with span(self._stats, "infer.plan", "infer.plan_s"):
+            halves = self._halves(vb, plan)
         if halves is not None:
             del x, plan, order
             return _Split([(half, self._run_batch(half)) for half in halves])
-        preds = self._unet(x, plan)
-        heads = [preds[k].float() for k in ("radius", "direction", "class_l")]
-        return self._download([order, *heads])
+        with span(self._stats, "infer.unet", "infer.unet_s"):
+            preds = self._unet(x, plan)
+            heads = [preds[k].float() for k in ("radius", "direction", "class_l")]
+            return self._download([order, *heads])
 
+    @_collect_half
     def _collect(self, vb, out, sinks):
         """Read one full-download batch into the sinks (xyzrgb, radius,
         direction, class logits)."""
-        if isinstance(out, _Split):
-            return out.collect(self._collect, sinks)
         order, radius, direction, logits = out.get()
         keep = vb.mask[order]
         out_xyzrgb, out_radius, out_dir, out_class = sinks
@@ -407,22 +438,25 @@ class ModelInference:
     def _run_batch_compact(self, vb):
         """Queue one compact batch: the download of the active rows'
         quantised heads (or a `_Split`)."""
-        skeys, res, orig, n_act = vb.compact_upload_sorted(self.upload_granularity,
-                                                           self.res_dtype)
-        x = self._sorted_input(vb, n_act, *self._upload(skeys.view(np.int32), res, orig))
-        plan = self._plan(x)
-        halves = self._halves(vb, plan)
+        with span(self._stats, "infer.pack", "infer.pack_s"):
+            skeys, res, orig, n_act = vb.compact_upload_sorted(self.upload_granularity,
+                                                               self.res_dtype)
+        uploaded = self._upload(skeys.view(np.int32), res, orig)
+        with span(self._stats, "infer.plan", "infer.plan_s"):
+            x = self._sorted_input(vb, n_act, *uploaded)
+            plan = self._plan(x)
+            halves = self._halves(vb, plan)
         if halves is not None:
             del x, plan
             return _Split([(half, self._run_batch_compact(half)) for half in halves])
-        preds = compress_preds(self._unet(x, plan))
-        return self._download([preds[k] for k in ("radius", "direction", "class_l")])
+        with span(self._stats, "infer.unet", "infer.unet_s"):
+            preds = compress_preds(self._unet(x, plan))
+            return self._download([preds[k] for k in ("radius", "direction", "class_l")])
 
+    @_collect_half
     def _collect_compact(self, vb, out, sinks):
         """Read one compact batch into the sinks (xyzrgb, radius, direction,
         class)."""
-        if isinstance(out, _Split):
-            return out.collect(self._collect_compact, sinks)
         radius, direction, class_l = out.get()
         _, order, n_act = vb.key_order()
         order = order[:n_act]              # active rows are the sorted prefix
@@ -452,30 +486,32 @@ class ModelInference:
         """Queue one culled batch: (download of the medial count; the
         partitioned class, radius and direction on the device), or a
         `_Split`."""
-        skeys, res, orig, n_act, bits = vb.compact_upload_sorted(
-            self.upload_granularity, self.res_dtype, with_mask=True)
+        with span(self._stats, "infer.pack", "infer.pack_s"):
+            skeys, res, orig, n_act, bits = vb.compact_upload_sorted(
+                self.upload_granularity, self.res_dtype, with_mask=True)
         keys_d, res_d, orig_d, bits_d = self._upload(skeys.view(np.int32), res, orig, bits)
-        x = self._sorted_input(vb, n_act, keys_d, res_d, orig_d)
-        plan = self._plan(x)
-        halves = self._halves(vb, plan)
+        with span(self._stats, "infer.plan", "infer.plan_s"):
+            x = self._sorted_input(vb, n_act, keys_d, res_d, orig_d)
+            plan = self._plan(x)
+            halves = self._halves(vb, plan)
         if halves is not None:
             del x, plan
             return _Split([(half, self._run_batch_culled(half)) for half in halves])
-        preds = compress_preds(self._unet(x, plan))
-        interior = _unpack_bits(bits_d, n_act)
-        cls_p, rad_p, dir_p, n_med = self._partition(preds, x.active, interior)
-        # the medial count comes back alone; the three downloads are sliced
-        # to it in _collect_culled
-        return self._download([n_med[None]]), (cls_p, rad_p, dir_p)
+        with span(self._stats, "infer.unet", "infer.unet_s"):
+            preds = compress_preds(self._unet(x, plan))
+            interior = _unpack_bits(bits_d, n_act)
+            cls_p, rad_p, dir_p, n_med = self._partition(preds, x.active, interior)
+            # the medial count comes back alone; the three downloads are
+            # sliced to it in _collect_culled
+            return self._download([n_med[None]]), (cls_p, rad_p, dir_p)
 
+    @_collect_half
     def _collect_culled(self, vb, out, sinks):
         """Read one culled batch into the sinks. The host rebuilds both
         device permutations from what it has (its mask and key sort for the
         interior rows, the downloaded classes for the medial rows), so the
         radius / direction download covers exactly the medial interior rows;
         the other interior rows get medial_vector = 0."""
-        if isinstance(out, _Split):
-            return out.collect(self._collect_culled, sinks)
         small, (cls_p, rad_p, dir_p) = out
         m = int(small.get()[0][0])
         _, order, n_act = vb.key_order()
@@ -508,30 +544,36 @@ class ModelInference:
 
     # -- entry points --------------------------------------------------------
 
-    def _windowed(self, cloud: Cloud, run: str, collect: str):
+    def _windowed(self, cloud: Cloud, run: str, collect: str, stats):
         """Tile the cloud and run every batch through the halves named `run`
         and `collect`: the sinks. On one device at most max_in_flight batches
         are queued ahead of the one being collected; on several, with more
         than one batch, `_submit_multi_device` deals them out."""
-        tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
-        batches = tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity)
+        with span(stats, "infer.tile", "infer.tile_s"):
+            tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
+        batches = _collated(tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity),
+                            stats)
         sinks = ([], [], [], [])
         self.plan_rows = []
-        if len(self.devices) > 1:
-            batches = list(batches)
-            if len(batches) > 1:
-                self._submit_multi_device(batches, run, collect, sinks)
-                return sinks
-        run, collect = getattr(self, run), getattr(self, collect)
-        window: list = []
-        for i, vb in enumerate(batches):
-            with self._slot(i):
-                window.append((vb, run(vb)))
-            if len(window) >= max(1, self.max_in_flight):
-                collect(*window.pop(0), sinks)
-        for vb, out in window:
-            collect(vb, out, sinks)
-        return sinks
+        self._stats = stats
+        try:
+            if len(self.devices) > 1:
+                batches = list(batches)
+                if len(batches) > 1:
+                    self._submit_multi_device(batches, run, collect, sinks)
+                    return sinks
+            run, collect = getattr(self, run), getattr(self, collect)
+            window: list = []
+            for i, vb in enumerate(batches):
+                with self._slot(i):
+                    window.append((vb, run(vb)))
+                if len(window) >= max(1, self.max_in_flight):
+                    collect(*window.pop(0), sinks)
+            for vb, out in window:
+                collect(vb, out, sinks)
+            return sinks
+        finally:
+            self._stats = None
 
     def _submit_multi_device(self, batches, run: str, collect: str, sinks) -> None:
         """The JAX package's `_submit_multichip`: batches grouped by (capacity,
@@ -550,55 +592,72 @@ class ModelInference:
                 launched = ShardedForward.launch(replicas, chunk, keep, run)
                 ShardedForward.collect(launched, collect, sinks)
 
-    def predict(self, cloud: Cloud) -> Dict[str, np.ndarray]:
+    def predict(self, cloud: Cloud, stats: dict | None = None) -> Dict[str, np.ndarray]:
         """Per-voxel predictions at full precision for the interior voxels of
         every block, through the full-download path: xyz, rgb, radius [n,1]
-        (log radius), direction [n,3], class_logits."""
+        (log radius), direction [n,3], class_logits. `stats` as for
+        `forward`."""
         out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
-            cloud, "_run_batch", "_collect")
-        if not out_xyzrgb:
-            z = np.zeros((0, 3), np.float32)
-            return {"xyz": z, "rgb": z, "radius": np.zeros((0, 1), np.float32),
-                    "direction": z, "class_logits": np.zeros((0, 2), np.float32)}
-        xyzrgb = np.concatenate(out_xyzrgb)
-        return {
-            "xyz": xyzrgb[:, :3],
-            "rgb": xyzrgb[:, 3:6],
-            "radius": np.concatenate(out_radius),
-            "direction": np.concatenate(out_dir),
-            "class_logits": np.concatenate(out_class),
-        }
+            cloud, "_run_batch", "_collect", stats)
+        with span(stats, "infer.collect", "infer.collect_s"):
+            if not out_xyzrgb:
+                z = np.zeros((0, 3), np.float32)
+                return {"xyz": z, "rgb": z, "radius": np.zeros((0, 1), np.float32),
+                        "direction": z, "class_logits": np.zeros((0, 2), np.float32)}
+            xyzrgb = np.concatenate(out_xyzrgb)
+            return {
+                "xyz": xyzrgb[:, :3],
+                "rgb": xyzrgb[:, 3:6],
+                "radius": np.concatenate(out_radius),
+                "direction": np.concatenate(out_dir),
+                "class_logits": np.concatenate(out_class),
+            }
 
-    def forward(self, cloud: Cloud, return_masked: bool = True) -> Cloud:
+    def forward(self, cloud: Cloud, return_masked: bool = True,
+                stats: dict | None = None) -> Cloud:
         """Cloud of interior voxels with medial_vector = exp(radius) *
         direction and the argmax class; with `medial_classes`, rows of any
         other class have medial_vector = 0. `return_masked` is accepted for
-        the JAX signature and, as there, unused."""
-        if not self.compact_transfers:
-            p = self.predict(cloud)
-            cls = np.argmax(p["class_logits"], axis=1)
-            medial_vector = np.exp(p["radius"]) * p["direction"]
-            if self.medial_classes is not None:
-                medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
-            xyz, rgb = p["xyz"], p["rgb"]
-        else:
+        the JAX signature and, as there, unused.
+
+        `stats`, when given, receives the host seconds of the forward's
+        stages, which follow one another and do not nest (utils/trace.py):
+        `infer.tile_s` (BlockTiler: block ids, each block's cube filter and
+        dedup), `infer.collate_s` (`collate_blocks`), `infer.pack_s` (the
+        host staging of each upload, its key sort included),
+        `infer.upload_s`, `infer.plan_s` (input tensors, exact plans with
+        their count reads, the budget check), `infer.unet_s` (queueing the
+        UNet, the download cull and the downloads) and `infer.collect_s`
+        (the waits for each batch and the host decode)."""
+        with span(stats, "infer.forward"):
+            if not self.compact_transfers:
+                p = self.predict(cloud, stats)
+                with span(stats, "infer.collect", "infer.collect_s"):
+                    cls = np.argmax(p["class_logits"], axis=1)
+                    medial_vector = np.exp(p["radius"]) * p["direction"]
+                    if self.medial_classes is not None:
+                        medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
+                    return Cloud(xyz=p["xyz"], rgb=p["rgb"], medial_vector=medial_vector,
+                                 class_l=cls.reshape(-1, 1).astype(np.float32),
+                                 filename=cloud.filename)
             if self.medial_classes is not None:
                 run, collect = "_run_batch_culled", "_collect_culled"
             else:
                 run, collect = "_run_batch_compact", "_collect_compact"
-            out_xyzrgb, out_radius, out_dir, out_class = self._windowed(cloud, run, collect)
-            if not out_xyzrgb:  # too sparse to form any block
-                z = np.zeros((0, 3), np.float32)
-                return Cloud(xyz=z, rgb=z, medial_vector=z,
-                             class_l=np.zeros((0, 1), np.float32), filename=cloud.filename)
-            xyzrgb = np.concatenate(out_xyzrgb)
-            xyz, rgb = xyzrgb[:, :3], xyzrgb[:, 3:6]
-            medial_vector = np.exp(np.concatenate(out_radius)) * np.concatenate(out_dir)
-            cls = np.concatenate(out_class)
-        return Cloud(
-            xyz=xyz,
-            rgb=rgb,
-            medial_vector=medial_vector,
-            class_l=cls.reshape(-1, 1).astype(np.float32),
-            filename=cloud.filename,
-        )
+            out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
+                cloud, run, collect, stats)
+            with span(stats, "infer.collect", "infer.collect_s"):
+                if not out_xyzrgb:  # too sparse to form any block
+                    z = np.zeros((0, 3), np.float32)
+                    return Cloud(xyz=z, rgb=z, medial_vector=z,
+                                 class_l=np.zeros((0, 1), np.float32), filename=cloud.filename)
+                xyzrgb = np.concatenate(out_xyzrgb)
+                medial_vector = np.exp(np.concatenate(out_radius)) * np.concatenate(out_dir)
+                cls = np.concatenate(out_class)
+                return Cloud(
+                    xyz=xyzrgb[:, :3],
+                    rgb=xyzrgb[:, 3:6],
+                    medial_vector=medial_vector,
+                    class_l=cls.reshape(-1, 1).astype(np.float32),
+                    filename=cloud.filename,
+                )

@@ -8,7 +8,6 @@ which logs a warning and returns without open3d.
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -19,6 +18,7 @@ from ..data.file import load_cloud, save_ply_cloud, save_ply_lineset, save_ply_m
 from ..data.tree import DisjointTreeSkeleton
 from ..device import resolve_device
 from ..skeleton.skeletonize import Skeletonizer
+from ..utils.trace import span
 from .inference import ModelInference
 
 log = logging.getLogger(__name__)
@@ -68,44 +68,39 @@ class Pipeline:
         self, path: Optional[Path] = None, cloud: Optional[Cloud] = None,
         stats: dict | None = None,
     ) -> DisjointTreeSkeleton:
-        """`stats`, when given, receives the seconds of each stage and the
-        skeleton stage's counts (see Skeletonizer.forward)."""
-        t0 = time.perf_counter()
+        """`stats`, when given, receives the seconds of each stage
+        (`inference_s` from the cloud's load through the forward's downloads,
+        `skeletonize_s`, `post_process_s`, `save_s`), the forward's own
+        (ModelInference.forward) and the skeleton stage's seconds and counts
+        (Skeletonizer.forward). The stages are spans (utils/trace.py)."""
+        with span(stats, "pipeline.process_cloud"):
+            with span(stats, "pipeline.inference", "inference_s"):
+                cloud = load_cloud(path) if path is not None else cloud
+                log.info("pipeline: %d points in", len(cloud))
+                if self.preprocessing is not None:
+                    cloud = self.preprocessing(cloud)
+                # the forward ends with its downloads, so the host clock is
+                # the stage's
+                labelled = self.model_inference.forward(cloud, stats=stats)
+            log.info("pipeline: inference done (%d labelled points)", len(labelled))
+            if self.view_model_output:
+                self._view_cloud(labelled)
 
-        def lap(name):
-            nonlocal t0
-            now = time.perf_counter()
-            if stats is not None:
-                stats[name] = now - t0
-            t0 = now
+            with span(stats, "skeleton.forward", "skeletonize_s"):
+                branch_cloud = labelled.filter_by_class(self.branch_classes)
+                log.info("pipeline: %d branch-class points", len(branch_cloud))
+                skeleton = self.skeletonizer.forward(branch_cloud, stats=stats)
+            log.info("pipeline: %d skeletons", len(skeleton.skeletons))
+            with span(stats, "post.process", "post_process_s"):
+                self.post_process(skeleton)
 
-        cloud = load_cloud(path) if path is not None else cloud
-        log.info("pipeline: %d points in", len(cloud))
-        if self.preprocessing is not None:
-            cloud = self.preprocessing(cloud)
+            if self.view_skeletons:
+                self._view_skeleton(skeleton, cloud)
 
-        # forward ends with its downloads, so the host clock is the stage's
-        labelled = self.model_inference.forward(cloud)
-        lap("inference_s")
-        log.info("pipeline: inference done (%d labelled points)", len(labelled))
-        if self.view_model_output:
-            self._view_cloud(labelled)
-
-        branch_cloud = labelled.filter_by_class(self.branch_classes)
-        log.info("pipeline: %d branch-class points", len(branch_cloud))
-        skeleton = self.skeletonizer.forward(branch_cloud, stats=stats)
-        lap("skeletonize_s")
-        log.info("pipeline: %d skeletons", len(skeleton.skeletons))
-        self.post_process(skeleton)
-        lap("post_process_s")
-
-        if self.view_skeletons:
-            self._view_skeleton(skeleton, cloud)
-
-        if self.save_outputs:
-            self.save(skeleton, labelled)
-            lap("save_s")
-        return skeleton
+            if self.save_outputs:
+                with span(stats, "post.save", "save_s"):
+                    self.save(skeleton, labelled)
+            return skeleton
 
     def post_process(self, skeleton: DisjointTreeSkeleton) -> None:
         # order: prune -> repair -> smooth

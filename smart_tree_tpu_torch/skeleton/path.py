@@ -25,6 +25,7 @@ import torch
 from ..data.branch import BranchSkeleton
 from ..device import resolve_device
 from ..neighbors.knn import _knn_impl
+from ..utils.trace import count, span
 
 log = logging.getLogger(__name__)
 
@@ -142,8 +143,12 @@ def _select_path_points_chunked(points, points_valid, medial_pts, radii, path):
 
 @torch.no_grad()
 def sample_tree_device(medial_pts, medial_radii, preds, distances, component_mask,
-                       hop_cap: int = 2048, max_branches: int = 4096
-                       ) -> SampleTreeResult:
+                       hop_cap: int = 2048, max_branches: int = 4096,
+                       stats: dict | None = None) -> SampleTreeResult:
+    """The greedy loop on the device. `stats`, when given, counts the host
+    fetches (`tracer_fetches`: one a greedy iteration, the last one's finding
+    no work included); each iteration is a `skeleton.trace_branch` span
+    (utils/trace.py)."""
     n = preds.shape[0]
     dev = preds.device
     radii = medial_radii.reshape(-1)
@@ -161,42 +166,44 @@ def sample_tree_device(medial_pts, medial_radii, preds, distances, component_mas
     jumps = build_jump_tables(preds, hop_cap)
 
     while n:
-        farthest = torch.argmax(dist)
-        v, length, term = _trace_chain(jumps, farthest, allocated, hop_cap)
-        tsafe = term.clamp_min(0)
-        # a trace that stopped only because of the hop cap (termination
-        # vertex still unallocated) truncated a path
-        hop_hit = (length >= hop_cap) & (term >= 0) & ~allocated[tsafe]
-        parent = torch.where(term >= 0, branch_ids[tsafe], -1)
-        # the one fetch of this branch
-        work, length, hop_hit, parent = torch.stack(
-            [(dist[farthest] > 0).long(), length, hop_hit.long(), parent]
-        ).tolist()
-        if not work:
-            break
-        if len(parents) >= max_branches:
-            cap_hit = True
-            break
-        iters += 1
-        hop_hits += hop_hit
-        # only real path vertices are written: no padding slot aliases
-        # vertex 0
-        path = v[:length].flip(0)
-        on_path = _select_path_points_chunked(
-            medial_pts, dist >= 0, medial_pts, radii, path
-        )
-        # masked fills, not boolean-index writes, which would fetch a count
-        allocated[:n] |= on_path
-        allocated[path] = True
-        dist.masked_fill_(on_path, -1.0)
-        dist[path] = -1.0
-        if length >= 2:
-            bid = len(parents)
-            branch_ids.masked_fill_(on_path, bid)
-            branch_ids[path] = bid
-            path_branch[path] = bid
-            path_pos[path] = torch.arange(length, dtype=torch.int64, device=dev)
-            parents.append(parent)
+        with span(stats, "skeleton.trace_branch"):
+            farthest = torch.argmax(dist)
+            v, length, term = _trace_chain(jumps, farthest, allocated, hop_cap)
+            tsafe = term.clamp_min(0)
+            # a trace that stopped only because of the hop cap (termination
+            # vertex still unallocated) truncated a path
+            hop_hit = (length >= hop_cap) & (term >= 0) & ~allocated[tsafe]
+            parent = torch.where(term >= 0, branch_ids[tsafe], -1)
+            # the one fetch of this branch
+            work, length, hop_hit, parent = torch.stack(
+                [(dist[farthest] > 0).long(), length, hop_hit.long(), parent]
+            ).tolist()
+            count(stats, "tracer_fetches")
+            if not work:
+                break
+            if len(parents) >= max_branches:
+                cap_hit = True
+                break
+            iters += 1
+            hop_hits += hop_hit
+            # only real path vertices are written: no padding slot aliases
+            # vertex 0
+            path = v[:length].flip(0)
+            on_path = _select_path_points_chunked(
+                medial_pts, dist >= 0, medial_pts, radii, path
+            )
+            # masked fills, not boolean-index writes, which would fetch a count
+            allocated[:n] |= on_path
+            allocated[path] = True
+            dist.masked_fill_(on_path, -1.0)
+            dist[path] = -1.0
+            if length >= 2:
+                bid = len(parents)
+                branch_ids.masked_fill_(on_path, bid)
+                branch_ids[path] = bid
+                path_branch[path] = bid
+                path_pos[path] = torch.arange(length, dtype=torch.int64, device=dev)
+                parents.append(parent)
 
     log.debug("sample_tree_device: %d greedy iterations", iters)
     return SampleTreeResult(
@@ -231,7 +238,7 @@ def _traced(what, medial_pts, radii, preds, distances, component_mask, hop_cap,
     truncated real work) and pull the result once: (branch vertex runs,
     parents, host points, host radii)."""
     res = sample_tree_device(medial_pts, radii, preds, distances, component_mask,
-                             hop_cap, max_branches)
+                             hop_cap, max_branches, stats)
     if stats is not None:
         stats["branches"] = res.branch_count
     if strict:

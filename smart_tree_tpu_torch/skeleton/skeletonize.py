@@ -19,8 +19,8 @@ branch encoding come down once.
 
 from __future__ import annotations
 
+import contextlib
 import logging
-import time
 from dataclasses import dataclass
 from typing import List
 
@@ -35,6 +35,7 @@ from ..graph.shortcuts import chain_shortcut_table
 from ..graph.sssp import _bf_rounds, _dist_init, _pred_tbl, tree_distances
 from ..graph.table import _build as _table_build
 from ..graph.table import symmetrized
+from ..utils.trace import span
 from .filter import outlier_removal
 from .graph import nn_graph
 from .path import sample_forest
@@ -69,22 +70,15 @@ def _select_components(sizes, min_vertices: int, max_components: int):
     return torch.where(top_sizes >= min_vertices, comp_ids, -1)
 
 
-class _Clock:
-    """Seconds per stage into `stats`, the device synchronised at each
-    stage's end; does nothing when `stats` is None."""
-
-    def __init__(self, stats, dev):
-        self.stats, self.dev = stats, dev
-        self.t0 = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.stats is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.stats[name] = self.stats.get(name, 0.0) + now - self.t0
-        self.t0 = now
+@contextlib.contextmanager
+def _stage(stats, dev, name: str, key: str):
+    """One stage as a span (utils/trace.py): with `stats` its seconds go to
+    `stats[key]`, the device synchronised at the stage's end so that they
+    hold its kernels."""
+    with span(stats, name, key):
+        yield
+        if stats is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 @dataclass
@@ -115,47 +109,48 @@ class Skeletonizer:
         # is there; on a card this also switches TF32 off
         resolve_device(self.device)
 
-    def _graph_stage(self, medial_pts, radii, y, keep, clock: _Clock, stats):
+    def _graph_stage(self, medial_pts, radii, y, keep, stats):
         """KNN graph -> shortcut table -> neighbor table -> components ->
         selection -> roots -> SSSP -> predecessors -> root distances."""
         n = medial_pts.shape[0]
         k = self.K
-        graph = nn_graph(medial_pts, radii.clamp_min(self.min_connection_length),
-                         k=k, valid=keep)
-        clock.lap("knn_graph_s")
+        dev = medial_pts.device
+        with _stage(stats, dev, "skeleton.knn_graph", "knn_graph_s"):
+            graph = nn_graph(medial_pts, radii.clamp_min(self.min_connection_length),
+                             k=k, valid=keep)
 
-        sc = (None, None)
-        if self.sssp_shortcuts:
-            sc = chain_shortcut_table(
-                graph.edges[:, 1].reshape(n, k),
-                graph.weights.reshape(n, k),
-                graph.valid.reshape(n, k),
-            )
-        flat = symmetrized(graph.edges, graph.weights, graph.valid)
-        cap = 4 * k
-        while True:
-            table, overflow = _table_build(*flat, n, cap)
-            if overflow == 0:
-                break
-            cap *= 2
-            log.info("skeletonize: neighbor-table overflow, cap -> %d", cap)
-        clock.lap("table_shortcuts_s")
+        with _stage(stats, dev, "graph.table_shortcuts", "table_shortcuts_s"):
+            sc = (None, None)
+            if self.sssp_shortcuts:
+                sc = chain_shortcut_table(
+                    graph.edges[:, 1].reshape(n, k),
+                    graph.weights.reshape(n, k),
+                    graph.valid.reshape(n, k),
+                )
+            flat = symmetrized(graph.edges, graph.weights, graph.valid)
+            cap = 4 * k
+            while True:
+                table, overflow = _table_build(*flat, n, cap)
+                if overflow == 0:
+                    break
+                cap *= 2
+                log.info("skeletonize: neighbor-table overflow, cap -> %d", cap)
 
-        labels, cc_rounds = _cc_rounds(table.idx, table.w, n, *sc)
-        labels = torch.where(keep, labels, torch.arange(n, device=labels.device))
-        sizes = component_sizes(labels, keep)
-        comp_ids = _select_components(sizes, self.minimum_graph_vertices,
-                                      self.max_components)
-        roots = _component_roots(labels, keep, y, comp_ids)
-        clock.lap("components_s")
+        with _stage(stats, dev, "graph.components", "components_s"):
+            labels, cc_rounds = _cc_rounds(table.idx, table.w, n, *sc)
+            labels = torch.where(keep, labels, torch.arange(n, device=labels.device))
+            sizes = component_sizes(labels, keep)
+            comp_ids = _select_components(sizes, self.minimum_graph_vertices,
+                                          self.max_components)
+            roots = _component_roots(labels, keep, y, comp_ids)
 
-        tol = 1e-6 if self.sssp_shortcuts else 0.0
-        dist, rounds = _bf_rounds(table.idx, table.w, _dist_init(roots, n), tol, *sc)
-        preds = _pred_tbl(table, roots, dist, n)
-        hop = medial_pts - medial_pts[preds.clamp_min(0)]
-        step = torch.sqrt((hop * hop).sum(dim=1))
-        root_dist = tree_distances(preds, step, n)
-        clock.lap("sssp_s")
+        with _stage(stats, dev, "graph.sssp", "sssp_s"):
+            tol = 1e-6 if self.sssp_shortcuts else 0.0
+            dist, rounds = _bf_rounds(table.idx, table.w, _dist_init(roots, n), tol, *sc)
+            preds = _pred_tbl(table, roots, dist, n)
+            hop = medial_pts - medial_pts[preds.clamp_min(0)]
+            step = torch.sqrt((hop * hop).sum(dim=1))
+            root_dist = tree_distances(preds, step, n)
         if stats is not None:
             stats.update(table_cap=cap, cc_rounds=cc_rounds, sssp_rounds=rounds)
         return labels, sizes, comp_ids, preds, root_dist
@@ -163,7 +158,8 @@ class Skeletonizer:
     @torch.no_grad()
     def forward(self, cloud: Cloud, stats: dict | None = None) -> DisjointTreeSkeleton:
         """`stats`, when given, receives the seconds of each stage (the
-        device is then synchronised at stage ends) and the stage's counts."""
+        device is then synchronised at stage ends), the stage's counts and
+        the tracer's host fetches (`tracer_fetches`, path.py)."""
         dev = resolve_device(self.device)
         if len(cloud) == 0:
             return DisjointTreeSkeleton([])
@@ -171,26 +167,25 @@ class Skeletonizer:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-        clock = _Clock(stats, dev)
-        medial_pts, radii, xyz = up(cloud.medial_pts), up(cloud.radius), up(cloud.xyz)
-        clock.lap("upload_s")
+        with _stage(stats, dev, "skeleton.upload", "upload_s"):
+            medial_pts, radii, xyz = up(cloud.medial_pts), up(cloud.radius), up(cloud.xyz)
 
-        keep = outlier_removal(
-            medial_pts, radii, nb_points=8, min_radius=self.min_filter_radius
-        )
-        clock.lap("outlier_filter_s")
+        with _stage(stats, dev, "skeleton.outlier_filter", "outlier_filter_s"):
+            keep = outlier_removal(
+                medial_pts, radii, nb_points=8, min_radius=self.min_filter_radius
+            )
         if stats is not None:
             stats["medial_points"] = int(medial_pts.shape[0])
 
-        if self.medial_quantize:
-            rep_idx, n_unique = medial_reduce(
-                medial_pts, xyz[:, 1], keep, self.medial_quantize
-            )
-            medial_pts, radii, xyz = medial_pts[rep_idx], radii[rep_idx], xyz[rep_idx]
-            keep = torch.ones(n_unique, dtype=torch.bool, device=dev)
-            log.info("skeletonize: medial_quantize %.3f m -> %d unique cells",
-                     self.medial_quantize, n_unique)
-        clock.lap("reduce_s")
+        with _stage(stats, dev, "skeleton.reduce", "reduce_s"):
+            if self.medial_quantize:
+                rep_idx, n_unique = medial_reduce(
+                    medial_pts, xyz[:, 1], keep, self.medial_quantize
+                )
+                medial_pts, radii, xyz = medial_pts[rep_idx], radii[rep_idx], xyz[rep_idx]
+                keep = torch.ones(n_unique, dtype=torch.bool, device=dev)
+                log.info("skeletonize: medial_quantize %.3f m -> %d unique cells",
+                         self.medial_quantize, n_unique)
         n = int(medial_pts.shape[0])
         if stats is not None:
             stats["graph_vertices"] = n
@@ -198,29 +193,29 @@ class Skeletonizer:
             return DisjointTreeSkeleton([])
 
         labels, sizes, comp_ids_d, preds, root_dist = self._graph_stage(
-            medial_pts, radii, xyz[:, 1], keep, clock, stats
+            medial_pts, radii, xyz[:, 1], keep, stats
         )
 
-        comp_ids = comp_ids_d[comp_ids_d >= 0]
-        union_mask = keep & torch.isin(labels, comp_ids)
-        labels_np, sizes_np = torch.stack([labels, sizes]).cpu().numpy()
-        comp_ids = comp_ids.cpu().numpy()
-        host_pts, host_radii = medial_pts.cpu().numpy(), radii.cpu().numpy()
+        with _stage(stats, dev, "skeleton.tracer", "tracer_s"):
+            comp_ids = comp_ids_d[comp_ids_d >= 0]
+            union_mask = keep & torch.isin(labels, comp_ids)
+            labels_np, sizes_np = torch.stack([labels, sizes]).cpu().numpy()
+            comp_ids = comp_ids.cpu().numpy()
+            host_pts, host_radii = medial_pts.cpu().numpy(), radii.cpu().numpy()
 
-        # ONE tracer run over the union of all selected components
-        per_comp = sample_forest(
-            medial_pts, radii, preds, root_dist, union_mask, labels_np,
-            hop_cap=self.hop_cap, max_branches=self.max_branches,
-            strict=self.strict, host_pts=host_pts, host_radii=host_radii,
-            stats=stats,
-        )
+            # ONE tracer run over the union of all selected components
+            per_comp = sample_forest(
+                medial_pts, radii, preds, root_dist, union_mask, labels_np,
+                hop_cap=self.hop_cap, max_branches=self.max_branches,
+                strict=self.strict, host_pts=host_pts, host_radii=host_radii,
+                stats=stats,
+            )
 
-        skeletons: List[TreeSkeleton] = []
-        for skeleton_id, comp in enumerate(comp_ids):
-            branches = per_comp.get(int(comp), {})
-            log.info("component %d: %d vertices -> %d branches",
-                     skeleton_id, int(sizes_np[comp]), len(branches))
-            if branches:
-                skeletons.append(TreeSkeleton(skeleton_id, branches))
-        clock.lap("tracer_s")
+            skeletons: List[TreeSkeleton] = []
+            for skeleton_id, comp in enumerate(comp_ids):
+                branches = per_comp.get(int(comp), {})
+                log.info("component %d: %d vertices -> %d branches",
+                         skeleton_id, int(sizes_np[comp]), len(branches))
+                if branches:
+                    skeletons.append(TreeSkeleton(skeleton_id, branches))
         return DisjointTreeSkeleton(skeletons)

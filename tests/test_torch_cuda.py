@@ -373,3 +373,45 @@ def test_z9_conv_on_the_card_matches_the_cpu_and_takes_no_kernel(cuda, precision
         assert torch.equal(got, full)
         out[str(dev)] = got.cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)
+
+
+def test_spans_leave_no_event_on_the_card(cuda):
+    """A profiled forward on the card with CPU and CUDA activity: the
+    program's spans (utils/trace.py) are host events only, so no CUDA-side
+    event carries a span's name, and the benchmark's kernel busy time
+    (benchmark/stbench/window.py) is the union of the kernels alone."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "stbench" / "window.py"
+    spec = importlib.util.spec_from_file_location("bench_window", path)
+    window = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(window)
+
+    cloud = CentreCloud()(generate_tree(seed=3, height=2.0, trunk_radius=0.08,
+                                        points_per_m2=3000.0, foliage_points=300)[0])
+    mi = ModelInference("smart_tree_tpu/weights/noble-elevator-58.npz", block_size=1.0,
+                        buffer_size=0.1, batch_size=1, medial_classes=[0],
+                        precision="bfloat16")
+    mi.forward(cloud)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mi.forward(cloud)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = {"infer.forward", "infer.tile", "infer.collate", "infer.pack", "infer.upload",
+             "infer.plan", "infer.unet", "infer.collect"}
+    host = {e.name for e in events if str(e.device_type).endswith("CPU")}
+    card = [e for e in events if str(e.device_type).endswith("CUDA")]
+    assert names <= host
+    assert not [e.name for e in card if e.name in names]
+    kernels = [(e.time_range.start / 1e6, e.time_range.end / 1e6) for e in card
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    assert kernels
+    assert window.kernel_busy_s(events) == window.union_s(kernels)

@@ -177,7 +177,8 @@ def test_medial_classes_semantics(monkeypatch, path):
                  "radius": rng.normal(-3, 0.3, size=(n, 1)).astype(np.float32),
                  "direction": rng.normal(size=(n, 3)).astype(np.float32),
                  "class_logits": rng.normal(size=(n, 2)).astype(np.float32)}
-        monkeypatch.setattr(ModelInference, "predict", lambda self, cloud: copy.deepcopy(preds))
+        monkeypatch.setattr(ModelInference, "predict",
+                            lambda self, cloud, stats=None: copy.deepcopy(preds))
         cloud = Cloud(xyz=preds["xyz"])
     a, b = culled.forward(cloud), everything.forward(cloud)
     np.testing.assert_array_equal(a.xyz, b.xyz)

@@ -1,0 +1,179 @@
+"""The port's spans and counters (utils/trace.py) and where they sit: the
+helper alone, its ranges in a CPU torch.profiler trace (host events, not
+user annotations), the forward's and the pipeline's outputs unchanged by
+`stats`, the forward's stage keys, and the tracer's fetch count. CPU only;
+the card's side (no device-side event for a span) is in test_torch_cuda.py."""
+
+import time
+
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from smart_tree_tpu_torch.data.augmentations import CentreCloud
+from smart_tree_tpu_torch.data.cloud import Cloud
+from smart_tree_tpu_torch.data.synthetic import generate_tree
+from smart_tree_tpu_torch.infer.inference import ModelInference
+from smart_tree_tpu_torch.skeleton import path as tpath
+from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
+from smart_tree_tpu_torch.utils import configs, trace
+
+WEIGHTS = "smart_tree_tpu/weights/noble-elevator-58.npz"
+TREE = dict(seed=3, height=2.0, trunk_radius=0.08, points_per_m2=3000.0,
+            foliage_points=300)
+# the forward's stages: they follow one another and do not nest
+FORWARD_SPANS = ("infer.tile", "infer.collate", "infer.pack", "infer.upload",
+                 "infer.plan", "infer.unet", "infer.collect")
+PIPELINE_KEYS = ("inference_s", "skeletonize_s", "post_process_s", "save_s", "upload_s",
+                 "outlier_filter_s", "reduce_s", "knn_graph_s", "table_shortcuts_s",
+                 "components_s", "sssp_s", "tracer_s", "branches", "tracer_fetches")
+MODES = {"full-download": dict(compact_transfers=False),
+         "compact": dict(),
+         "culled": dict(medial_classes=[0])}
+
+
+@pytest.fixture(scope="module")
+def tree():
+    return CentreCloud()(generate_tree(**TREE)[0])
+
+
+def _spans(prof):
+    """(name, start, end) of the profile's program spans."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if "." in e.name and not e.name.startswith(("aten::", "cudaDevice"))]
+
+
+def test_span_adds_seconds_and_count_adds():
+    stats = {}
+    with trace.span(stats, "test.sleep", "sleep_s"):
+        time.sleep(0.01)
+    with trace.span(stats, "test.sleep", "sleep_s"):
+        pass
+    with trace.span(stats, "test.range_only"):
+        pass
+    trace.count(stats, "n")
+    trace.count(stats, "n", 3)
+    assert stats.keys() == {"sleep_s", "n"}
+    assert 0.01 <= stats["sleep_s"] < 1.0 and stats["n"] == 4
+
+
+@pytest.mark.parametrize("stats,key", [(None, "k_s"), (None, None), ({}, None)],
+                         ids=["no-stats", "no-stats-no-key", "no-key"])
+def test_span_does_nothing_without_stats_or_profiler(monkeypatch, stats, key):
+    def no_clock():
+        raise AssertionError("a span read the clock")
+
+    monkeypatch.setattr(trace.time, "perf_counter", no_clock)
+    ctx = trace.span(stats, "test.off", key)
+    assert ctx is trace._NULL
+    with ctx:
+        pass
+    trace.count(None, "n")
+    assert stats in (None, {})
+
+
+def test_spans_are_profiler_host_events_not_user_annotations():
+    import torch
+
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span(None, "test.outer"):
+            with trace.span(stats, "test.inner", "inner_s"):
+                torch.ones(16).sum()
+    events = {e.name: e for e in prof.events() if e.name.startswith("test.")}
+    assert events.keys() == {"test.outer", "test.inner"}
+    for e in events.values():
+        assert str(e.device_type).endswith("CPU") and e.is_user_annotation is False
+    outer, inner = events["test.outer"].time_range, events["test.inner"].time_range
+    assert outer.start <= inner.start <= inner.end <= outer.end
+    assert stats["inner_s"] > 0
+
+
+def _cloud_fields(c):
+    return [np.asarray(getattr(c, f)) for f in ("xyz", "rgb", "medial_vector", "class_l")]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_forward_is_unchanged_by_stats_and_its_stages_tile_it(tree, mode):
+    mi = ModelInference(WEIGHTS, device="cpu", **MODES[mode])
+    plain = mi.forward(tree)
+    stats = {}
+    timed = mi.forward(tree, stats=stats)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = mi.forward(tree)
+    for a, b, c in zip(_cloud_fields(plain), _cloud_fields(timed), _cloud_fields(traced)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS}
+    assert all(v >= 0.0 for v in stats.values())
+    spans = _spans(prof)
+    root = "infer.forward"
+    assert [s[0] for s in spans].count(root) == 1
+    _, r0, r1 = next(s for s in spans if s[0] == root)
+    stages = sorted(s for s in spans if s[0] in FORWARD_SPANS)
+    assert {s[0] for s in stages} == set(FORWARD_SPANS)
+    stages.sort(key=lambda s: s[1])
+    for (_, _, end), (_, start, _) in zip(stages, stages[1:]):
+        assert end <= start          # one after the other, none inside another
+    assert r0 <= stages[0][1] and stages[-1][2] <= r1
+    assert stages[0][0] == "infer.tile"
+
+
+@pytest.fixture(scope="module")
+def pipeline_runs(tmp_path_factory):
+    """The default pipeline on the CPU over one small tree, without and with
+    `stats`: (skeleton, output folder, stats) of each."""
+    raw = generate_tree(**TREE)[0]
+    runs = []
+    for stats in (None, {}):
+        out = tmp_path_factory.mktemp("out")
+        cfg = configs.default_pipeline_config()
+        cfg["model_inference"]["device"] = "cpu"
+        cfg["skeletonizer"]["device"] = "cpu"
+        cfg["save_path"] = str(out)
+        skel = configs.instantiate(cfg).process_cloud(cloud=Cloud(xyz=raw.xyz, rgb=raw.rgb),
+                                                      stats=stats)
+        runs.append((skel, out, stats))
+    return runs
+
+
+def test_pipeline_is_unchanged_by_stats(pipeline_runs):
+    (a, out_a, _), (b, out_b, _) = pipeline_runs
+    assert [sorted(s.branches) for s in a.skeletons] == [sorted(s.branches) for s in b.skeletons]
+    for sa, sb in zip(a.skeletons, b.skeletons):
+        for key, x in sa.branches.items():
+            np.testing.assert_array_equal(x.xyz, sb.branches[key].xyz)
+            np.testing.assert_array_equal(x.radii, sb.branches[key].radii)
+    for name in ("skeleton.ply", "mesh.ply", "cloud.ply", "seg_cld.ply"):
+        assert (out_a / name).read_bytes() == (out_b / name).read_bytes()
+
+
+def test_pipeline_stats_hold_the_forward_stages_within_inference(pipeline_runs):
+    stats = pipeline_runs[1][2]
+    for key in PIPELINE_KEYS + tuple(f"{s}_s" for s in FORWARD_SPANS):
+        assert key in stats, key
+    forward = sum(stats[f"{s}_s"] for s in FORWARD_SPANS)
+    assert 0.0 < forward <= stats["inference_s"]
+    assert stats["tracer_fetches"] >= stats["branches"] + 1
+
+
+@pytest.mark.parametrize("max_branches,strict", [(1024, True), (3, False)],
+                         ids=["all-branches", "branch-cap"])
+def test_tracer_fetches_are_iterations_plus_the_last(monkeypatch, max_branches, strict):
+    c, _ = generate_tree(seed=10, height=2.0, points_per_m2=2500.0, max_depth=1)
+    cloud = Cloud(xyz=c.xyz, medial_vector=c.medial_vector)
+    iterations = []
+    select = tpath._select_path_points_chunked
+
+    def counted(*a):
+        iterations.append(1)
+        return select(*a)
+
+    monkeypatch.setattr(tpath, "_select_path_points_chunked", counted)
+    stats = {}
+    Skeletonizer(device="cpu", max_branches=max_branches, strict=strict).forward(
+        cloud, stats=stats)
+    assert len(iterations) >= 3
+    assert stats["tracer_fetches"] == len(iterations) + 1
+    if max_branches == 3:
+        assert stats["branches"] == 3
