@@ -7,9 +7,10 @@ Counterpart of `smart_tree_tpu/data/dataset.py`:
                PADDED fixed-capacity batch. A plain host iterator, no
                DataLoader.
   BlockTiler   floor-divide a cloud into block_size cubes, drop blocks with
-               too few points, crop each with a +-buffer halo, voxelise it and
-               mark the interior; `batches` packs blocks into padded pow2
-               capacity batches.
+               too few points, bin the points into each block's +-buffer
+               halo in one native pass, voxelise each block and mark the
+               interior; `batches` packs blocks into padded pow2 capacity
+               batches.
 
 Both produce a `VoxelBatch`.
 """
@@ -26,7 +27,6 @@ import numpy as np
 
 from .. import native
 from ..core.coords import INVALID_KEY, pack_coords_np
-from ..utils.maths import cube_filter
 from .cloud import Cloud
 from .file import load_cloud
 
@@ -322,9 +322,11 @@ class Block:
 
 
 class BlockTiler:
-    """Spatial tiling with halos into bucketed padded batches. Each block is
-    voxelised by `dedup` (`voxelize_host`; a subclass may name
-    `voxelize_host_plain` to time the numpy version)."""
+    """Spatial tiling with halos into bucketed padded batches. The halos come
+    from one pass over the points (`native.tile_blocks`; `box_tests` is the
+    number of point-box tests it made). Each block is voxelised by `dedup`
+    (`voxelize_host`; a subclass may name `voxelize_host_plain` to time the
+    numpy version)."""
 
     dedup = staticmethod(voxelize_host)
 
@@ -349,31 +351,28 @@ class BlockTiler:
             if cloud.rgb is not None
             else np.zeros_like(xyz)
         )
-        q = np.floor(xyz / block_size).astype(np.int64)
-        qmin = q.min(axis=0)
-        qo = q - qmin
-        packed = (qo[:, 0] << 42) | (qo[:, 1] << 21) | qo[:, 2]
-        upacked, counts = np.unique(packed, return_counts=True)
-        upacked = upacked[counts > min_points]
-        ids = (
-            np.stack(
-                [upacked >> 42, (upacked >> 21) & 0x1FFFFF, upacked & 0x1FFFFF],
-                axis=1,
-            )
-            + qmin
-        )
+        # the cells holding more than min_points points, in lexicographic order
+        cell, cells = native.block_ids(xyz, block_size)
+        ids = cells[np.bincount(cell, minlength=len(cells)) > min_points].astype(np.int64)
+        ids = ids[np.lexsort(ids.T[::-1])]
         self.block_centres = ids * block_size + block_size / 2
 
+        # every block's halo rows in one pass over the points
+        offsets, rows, inside, self.box_tests = native.tile_blocks(
+            xyz, ids, block_size, buffer_size)
+        xyzrgb = np.concatenate([xyz, rgb], axis=1)
         self.blocks: List[Block] = []
-        for centre in self.block_centres:
-            m = cube_filter(xyz, centre, block_size + 2 * buffer_size)
-            bxyz, brgb = xyz[m], rgb[m]
-            coords, data, origin = self.dedup(
-                bxyz, np.concatenate([bxyz, brgb], axis=1), voxel_size
-            )
-            interior = cube_filter(data[:, :3], centre, block_size)
+        for lo, hi in zip(offsets[:-1], offsets[1:]):
+            halo = rows[lo:hi]
+            # the dedup gathers its `data` argument by the surviving rows:
+            # given halo positions it returns them, so only the survivors'
+            # features are gathered (np.take: a row gather at a fraction of
+            # fancy indexing's cost)
+            coords, first, origin = self.dedup(
+                np.take(xyz, halo, axis=0), np.arange(hi - lo), voxel_size)
             shape = tuple(int(v) + 1 for v in coords.max(axis=0))
-            self.blocks.append(Block(coords, data, interior, shape, origin))
+            self.blocks.append(Block(coords, np.take(xyzrgb, halo[first], axis=0),
+                                     inside[lo:hi][first], shape, origin))
 
     def __len__(self):
         return len(self.blocks)

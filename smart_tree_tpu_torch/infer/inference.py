@@ -91,7 +91,7 @@ from ..data.cloud import Cloud
 from ..data.dataset import BlockTiler, halve_batch, stage_rows
 from ..device import resolve_device
 from ..nn.convert import load_model, load_weights
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 log = logging.getLogger(__name__)
 
@@ -551,6 +551,7 @@ class ModelInference:
         than one batch, `_submit_multi_device` deals them out."""
         with span(stats, "infer.tile", "infer.tile_s"):
             tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
+            count(stats, "tile_box_tests", tiler.box_tests)
         batches = _collated(tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity),
                             stats)
         sinks = ([], [], [], [])
@@ -622,9 +623,11 @@ class ModelInference:
 
         `stats`, when given, receives the host seconds of the forward's
         stages, which follow one another and do not nest (utils/trace.py):
-        `infer.tile_s` (BlockTiler: block ids, each block's cube filter and
-        dedup), `infer.collate_s` (`collate_blocks`), `infer.pack_s` (the
-        host staging of each upload, its key sort included),
+        `infer.tile_s` (BlockTiler: block ids, one binning pass, each
+        block's dedup; the counter `tile_box_tests` gets the pass's
+        point-box tests), `infer.collate_s` (`collate_blocks`),
+        `infer.pack_s` (the host staging of each upload, its key sort
+        included),
         `infer.upload_s`, `infer.plan_s` (input tensors, exact plans with
         their count reads, the budget check), `infer.unet_s` (queueing the
         UNet, the download cull and the downloads) and `infer.collect_s`

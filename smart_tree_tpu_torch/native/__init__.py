@@ -2,7 +2,8 @@
 
 Counterpart of `smart_tree_tpu/native/__init__.py`, with the same entry
 points and signatures (`voxelize`, `cube_filter`, `block_ids`) over the
-port's own copy of the C++ source. Differences by design:
+port's own copy of the C++ source, and one of its own: `tile_blocks`, the
+tiler's halo binning in one pass over the points. Differences by design:
 
   - the library is built at first use into `build/torch_native/` beside the
     package (git-ignored). Its name carries a hash of the source, the flags
@@ -13,8 +14,8 @@ port's own copy of the C++ source. Differences by design:
   - a failed build RAISES: the main path (`data/dataset.py::voxelize_host`)
     never falls back to numpy quietly, and there is no switch to turn the
     library off. The numpy versions below (`voxelize_plain`,
-    `block_ids_plain`; `utils/maths.py::cube_filter`) are the plain
-    versions the tests hold the library against.
+    `block_ids_plain`, `tile_blocks_plain`; `utils/maths.py::cube_filter`)
+    are the plain versions the tests hold the library against.
 
 Nothing is built or loaded when the module is imported.
 """
@@ -33,9 +34,12 @@ from typing import Tuple
 
 import numpy as np
 
+from ..utils.maths import cube_filter as cube_filter_plain
+
 _SRC = Path(__file__).resolve().with_name("st_native.cpp")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
-_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+# no fused multiply-add: st_tile_blocks rounds each face as numpy does
+_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17"]
 
 _F = ctypes.POINTER(ctypes.c_float)
 _I32 = ctypes.POINTER(ctypes.c_int32)
@@ -48,6 +52,10 @@ _SIGNATURES = {
     "st_cube_filter": [_F, ctypes.c_int64, _F, ctypes.c_float, _U8],
     # xyz, n, block_size, out_ids, out_block_coords -> blocks
     "st_block_ids": [_F, ctypes.c_int64, ctypes.c_float, _I64, _I32],
+    # xyz, n, ids, blocks, block_size, buffer_size, out_offsets, out_rows
+    # (null: count only), out_interior, out_tests -> rows
+    "st_tile_blocks": [_F, ctypes.c_int64, _I64, ctypes.c_int64, ctypes.c_double,
+                       ctypes.c_double, _I64, _I64, _U8, _I64],
 }
 
 _lock = threading.Lock()
@@ -167,6 +175,59 @@ def block_ids(xyz: np.ndarray, block_size: float) -> Tuple[np.ndarray, np.ndarra
     if m < 0:
         raise RuntimeError(f"st_block_ids failed on {n} points")
     return ids, blocks[:m].copy()
+
+
+def _block_coords(ids) -> np.ndarray:
+    ids = np.ascontiguousarray(ids, np.int64)
+    if ids.ndim != 2 or ids.shape[1] != 3:
+        raise ValueError(f"expected block ids of shape [B, 3], got {ids.shape}")
+    return ids
+
+
+def tile_blocks(xyz: np.ndarray, ids, block_size: float, buffer_size: float
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The halo rows of each block, in one pass over the points: (offsets
+    int64 [B+1], rows int64, interior bool, point-box tests). Block b's rows
+    are rows[offsets[b]:offsets[b+1]], the points inside the cube of side
+    block_size + 2 * buffer_size around the block's centre ids[b] *
+    block_size + block_size / 2, ascending; interior marks those inside the
+    cube of side block_size. Equal to `tile_blocks_plain`, whose tests are
+    points x blocks; here a test is one block looked up for a point whose
+    every axis lies within that block's buffered faces."""
+    lib = load()
+    xyz, ids = _points(xyz), _block_coords(ids)
+    block_size, buffer_size = float(block_size), float(buffer_size)
+    if not block_size > 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    n, nb = len(xyz), len(ids)
+    offsets = np.empty(nb + 1, np.int64)
+    tests = np.zeros(1, np.int64)
+    args = (_ptr(xyz, _F), n, _ptr(ids, _I64), nb, block_size, buffer_size,
+            _ptr(offsets, _I64))
+    total = lib.st_tile_blocks(*args, None, None, _ptr(tests, _I64))
+    if total == -1:
+        raise ValueError("block ids repeat")
+    if total < 0:
+        raise RuntimeError(f"st_tile_blocks failed on {n} points, {nb} blocks")
+    rows = np.empty(total, np.int64)
+    interior = np.empty(total, np.uint8)
+    lib.st_tile_blocks(*args, _ptr(rows, _I64), _ptr(interior, _U8), None)
+    return offsets, rows, interior.view(bool), int(tests[0])
+
+
+def tile_blocks_plain(xyz: np.ndarray, ids, block_size: float, buffer_size: float
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """numpy version of `tile_blocks`: one cube filter of the whole cloud a
+    block, and one of its rows for the interior."""
+    xyz, ids = np.asarray(xyz, np.float32), _block_coords(ids)
+    offsets, rows, interior = [0], [], []
+    for centre in ids * block_size + block_size / 2:
+        r = np.flatnonzero(cube_filter_plain(xyz, centre, block_size + 2 * buffer_size))
+        rows.append(r)
+        interior.append(cube_filter_plain(xyz[r], centre, block_size))
+        offsets.append(offsets[-1] + len(r))
+    return (np.asarray(offsets, np.int64), np.concatenate(rows or [np.zeros(0, np.int64)]),
+            np.concatenate(interior or [np.zeros(0, bool)]), len(xyz) * len(ids))
 
 
 def voxelize_plain(xyz: np.ndarray, voxel: float, origin) -> Tuple[np.ndarray, np.ndarray]:

@@ -155,4 +155,118 @@ int64_t st_block_ids(const float* xyz, int64_t n, float block_size,
     return static_cast<int64_t>(cells.size());
 }
 
+// Halo binning of data/dataset.py::BlockTiler: for each kept block (ids: nb
+// x 3 int64 block coordinates, in the tiler's order) the rows of the points
+// inside its buffered cube, in ascending order, and whether each lies inside
+// the un-buffered cube. Membership is native.tile_blocks_plain's (a
+// utils/maths.py::cube_filter per block): the float32 point against float64
+// faces, half-open, with
+//   centre = id * block + block / 2,
+//   halo faces = centre -+ (block + 2 * buffer) / 2,
+//   interior faces = centre -+ block / 2,
+// each rounded as numpy rounds it (the library is built with
+// -ffp-contract=off, so no multiply-add is fused).
+//
+// The box test is an AND of one test per axis, and an axis' faces depend only
+// on the block's coordinate on that axis. So per point and axis the blocks
+// whose slab holds it are found exactly among the point's own cell
+// floor(p / block) and `reach` cells either side (reach = floor(|buffer| /
+// block) + 1, so any buffer stays covered), and each combination of the three
+// axes' blocks is one point-box test: a lookup among the kept blocks.
+//
+// Called twice. With out_rows null it counts: out_offsets (nb + 1 int64)
+// gets each block's first row, *out_tests the point-box tests made. Then,
+// given those offsets, out_rows (int64) and out_interior (uint8) are filled.
+// Returns the number of rows, -1 when a block id repeats, -2 on bad sizes.
+int64_t st_tile_blocks(const float* xyz, int64_t n, const int64_t* ids,
+                       int64_t nb, double block, double buffer,
+                       int64_t* out_offsets, int64_t* out_rows,
+                       uint8_t* out_interior, int64_t* out_tests) {
+    if (n < 0 || nb < 0 || !(block > 0.0)) return -2;
+    const bool fill = out_rows != nullptr;
+    if (!fill) std::fill(out_offsets, out_offsets + nb + 1, int64_t{0});
+    if (nb == 0 || n == 0) {
+        if (!fill) *out_tests = 0;
+        return 0;
+    }
+    // kept-block lookup: open-addressed, power-of-two capacity >= 4 nb
+    uint64_t cap = 1;
+    while (cap < static_cast<uint64_t>(4 * nb)) cap <<= 1;
+    const uint64_t mask = cap - 1;
+    std::vector<int64_t> slots(cap, -1);
+    auto probe = [&](int64_t x, int64_t y, int64_t z) -> uint64_t {
+        uint64_t h = hash_cell(static_cast<int32_t>(x), static_cast<int32_t>(y),
+                               static_cast<int32_t>(z)) &
+                     mask;
+        for (;;) {
+            const int64_t s = slots[h];
+            if (s < 0 || (ids[3 * s] == x && ids[3 * s + 1] == y &&
+                          ids[3 * s + 2] == z))
+                return h;
+            h = (h + 1) & mask;
+        }
+    };
+    for (int64_t j = 0; j < nb; ++j) {
+        const uint64_t h = probe(ids[3 * j], ids[3 * j + 1], ids[3 * j + 2]);
+        if (slots[h] >= 0) return -1;
+        slots[h] = j;
+    }
+
+    const double half_halo = (block + 2.0 * buffer) / 2.0;
+    const double half_in = block / 2.0;
+    const int64_t reach = static_cast<int64_t>(std::floor(std::fabs(buffer) / block)) + 1;
+    // per axis: the blocks whose buffered slab holds the point, and whether
+    // its un-buffered slab does
+    std::vector<int64_t> hit[3];
+    std::vector<uint8_t> inside[3];
+    for (int a = 0; a < 3; ++a) {
+        hit[a].reserve(2 * reach + 1);
+        inside[a].reserve(2 * reach + 1);
+    }
+    std::vector<int64_t> cursor;
+    if (fill) cursor.assign(out_offsets, out_offsets + nb);
+    int64_t tests = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        bool any = true;
+        for (int a = 0; a < 3 && any; ++a) {
+            const double p = static_cast<double>(xyz[3 * i + a]);
+            hit[a].clear();
+            inside[a].clear();
+            if (!std::isfinite(p)) {  // cube_filter's comparisons are false
+                any = false;
+                continue;
+            }
+            const int64_t c = static_cast<int64_t>(std::floor(p / block));
+            for (int64_t k = c - reach; k <= c + reach; ++k) {
+                const double centre = static_cast<double>(k) * block + block / 2.0;
+                if (centre - half_halo <= p && p < centre + half_halo) {
+                    hit[a].push_back(k);
+                    inside[a].push_back(centre - half_in <= p && p < centre + half_in);
+                }
+            }
+            any = !hit[a].empty();
+        }
+        if (!any) continue;
+        for (size_t ix = 0; ix < hit[0].size(); ++ix)
+            for (size_t iy = 0; iy < hit[1].size(); ++iy)
+                for (size_t iz = 0; iz < hit[2].size(); ++iz) {
+                    ++tests;
+                    const int64_t j = slots[probe(hit[0][ix], hit[1][iy], hit[2][iz])];
+                    if (j < 0) continue;
+                    if (!fill) {
+                        ++out_offsets[j + 1];
+                        continue;
+                    }
+                    const int64_t r = cursor[j]++;
+                    out_rows[r] = i;
+                    out_interior[r] = inside[0][ix] & inside[1][iy] & inside[2][iz];
+                }
+    }
+    if (!fill) {
+        for (int64_t j = 0; j < nb; ++j) out_offsets[j + 1] += out_offsets[j];
+        *out_tests = tests;
+    }
+    return out_offsets[nb];
+}
+
 }  // extern "C"

@@ -30,8 +30,11 @@ from smart_tree_tpu_torch.core import memory as tmem
 from smart_tree_tpu_torch.data import dataset as tds
 from smart_tree_tpu_torch.data import file as tfile
 from smart_tree_tpu_torch.data.augmentations import AugmentationPipeline, CentreCloud
+from smart_tree_tpu_torch.data.cloud import Cloud
 from smart_tree_tpu_torch.data.synthetic import generate_tree
 from smart_tree_tpu_torch.infer.inference import ModelInference
+from smart_tree_tpu_torch.tools.bench_scan import make_forest
+from smart_tree_tpu_torch.utils.maths import cube_filter
 
 REPO = Path(__file__).resolve().parent.parent
 WEIGHTS = "smart_tree_tpu/weights/noble-elevator-58.npz"
@@ -137,6 +140,74 @@ def test_tiler_and_batches_match_jax():
         tc16, tres, torig = tb.compressed_xyz_upload()
         assert tc16.dtype == np.int16 and tres.dtype == np.float16
         np.testing.assert_array_equal(torig, jb.compressed_xyz_upload()[2])
+
+
+class _PerBlockTiler(tds.BlockTiler):
+    """The tiler as it was before the one-pass binning: one cube filter of
+    the whole cloud a block for its halo, and one of its survivors for the
+    interior. The plain reference of `BlockTiler`'s blocks."""
+
+    def __init__(self, cloud, voxel_size, block_size=4.0, buffer_size=0.4, min_points=20):
+        self.voxel_size, self.block_size, self.buffer_size = voxel_size, block_size, buffer_size
+        side = int(np.ceil((block_size + 2 * buffer_size) / voxel_size)) + 1
+        self.grid_shape = (side, side, side)
+        xyz = np.asarray(cloud.xyz, np.float32)
+        rgb = np.asarray(cloud.rgb, np.float32) if cloud.rgb is not None else np.zeros_like(xyz)
+        q = np.floor(xyz / block_size).astype(np.int64)
+        ids, counts = np.unique(q, axis=0, return_counts=True)
+        self.block_centres = ids[counts > min_points] * block_size + block_size / 2
+        self.blocks = []
+        for centre in self.block_centres:
+            m = cube_filter(xyz, centre, block_size + 2 * buffer_size)
+            bxyz, brgb = xyz[m], rgb[m]
+            coords, data, origin = self.dedup(
+                bxyz, np.concatenate([bxyz, brgb], axis=1), voxel_size)
+            interior = cube_filter(data[:, :3], centre, block_size)
+            shape = tuple(int(v) + 1 for v in coords.max(axis=0))
+            self.blocks.append(tds.Block(coords, data, interior, shape, origin))
+
+
+def _small_forest():
+    return make_forest(2, 150.0, seed=4)
+
+
+def _no_rgb_tree():
+    c = generate_tree(seed=5, height=3.0, trunk_radius=0.1, points_per_m2=2500.0,
+                      foliage_points=500)[0]
+    return Cloud(xyz=np.asarray(c.xyz, np.float32) - np.float32(1.3))
+
+
+@pytest.mark.parametrize("make,grid", [
+    (lambda: CentreCloud()(generate_tree(**TREE)[0]), (0.01, 4.0, 0.4)),
+    (lambda: CentreCloud()(generate_tree(**TREE)[0]), (0.01, 1.0, 0.1)),
+    (_small_forest, (0.01, 4.0, 0.4)),
+    (_no_rgb_tree, (0.025, 0.5, 0.05)),
+], ids=["tree", "tree-block1", "forest", "no-rgb"])
+def test_tiler_equals_the_per_block_cube_filter_tiler(make, grid):
+    cloud = make()
+    new, ref = tds.BlockTiler(cloud, *grid), _PerBlockTiler(cloud, *grid)
+    assert new.grid_shape == ref.grid_shape and len(new) == len(ref) >= 2
+    np.testing.assert_array_equal(new.block_centres, ref.block_centres)
+    for a, b in zip(new.blocks, ref.blocks):
+        for f in ("coords", "feats", "interior", "origin"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and x.shape == y.shape, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        assert a.spatial_shape == b.spatial_shape
+    cap = 1 << 16
+    for x, y in zip(new.batches(4, max_capacity=cap), ref.batches(4, max_capacity=cap),
+                    strict=True):
+        for f in x._fields:
+            u, v = getattr(x, f), getattr(y, f)
+            if isinstance(u, np.ndarray):
+                np.testing.assert_array_equal(u, v, err_msg=f)
+            else:
+                assert u == v, f
+    # a point lies in at most 2 halos an axis (buffer under half a block), and
+    # every halo row was one test
+    halo_rows = sum(int(cube_filter(cloud.xyz, c, grid[1] + 2 * grid[2]).sum())
+                    for c in ref.block_centres)
+    assert halo_rows <= new.box_tests <= 8 * len(cloud)
 
 
 def test_load_cloud_npz_and_ply(tmp_path):

@@ -1,6 +1,8 @@
 """The port's native host library (smart_tree_tpu_torch/native) against its
-own numpy plain versions and against smart_tree_tpu.native, and the port's
-voxelize_host (which goes through it) against the JAX one.
+own numpy plain versions and against smart_tree_tpu.native, the port's
+voxelize_host (which goes through it) against the JAX one, and the tiler's
+one-pass halo binning (`tile_blocks`, the port's own entry) against its
+per-block cube filter.
 
 Every test here needs g++ to build st_native.cpp; without it they skip and
 say so. The library's results are integer and boolean, so every comparison
@@ -84,6 +86,86 @@ def test_block_ids_match_plain_and_jax(gxx):
         np.testing.assert_array_equal(blocks, jref[1])
 
 
+def _kept_ids(xyz, block_size, min_points=20):
+    """The tiler's blocks: cells of block_size holding more than min_points
+    points."""
+    q = np.floor(xyz / np.float32(block_size)).astype(np.int64)
+    ids, counts = np.unique(q, axis=0, return_counts=True)
+    return ids[counts > min_points]
+
+
+def _face_cloud(block, buffer, seed=8, n=6000):
+    """Points whose coordinates lie on block faces, halo faces and interior
+    faces of the cells -2..2, or one float32 step to either side of them."""
+    ks = np.arange(-2, 3, dtype=np.float64)[:, None] * block
+    faces = (ks + np.asarray([0.0, -buffer, buffer, block / 2, block + buffer])).ravel()
+    faces = faces.astype(np.float32)
+    faces = np.concatenate([faces, np.nextafter(faces, np.float32(np.inf)),
+                            np.nextafter(faces, np.float32(-np.inf))])
+    return np.random.default_rng(seed).choice(faces, size=(n, 3))
+
+
+def _min_points_cloud(seed=9):
+    """Cells of exactly 20 and of 21 points (at min_points 20 the first is
+    dropped and the second kept) beside a dense one."""
+    rng = np.random.default_rng(seed)
+    parts = [rng.uniform(0.05, 0.95, (n, 3)) + np.asarray(c, np.float64)
+             for n, c in ((20, (0, 0, 0)), (21, (1, 0, 0)), (400, (0, 1, 0)))]
+    return np.concatenate(parts).astype(np.float32)
+
+
+TILE_CASES = {
+    "block4-buffer0.4": lambda: (_cloud(10, 20000, -9.0, 9.0), 4.0, 0.4),
+    "block1-buffer0.1": lambda: (_cloud(11, 20000, -2.5, 3.5), 1.0, 0.1),
+    "block0.5-buffer0.05": lambda: (_cloud(12, 20000, -1.2, 1.3), 0.5, 0.05),
+    "block1-buffer0.6": lambda: (_cloud(13, 20000, -3.0, 3.0), 1.0, 0.6),
+    "block1-buffer1.2": lambda: (_cloud(17, 20000, -3.0, 3.0), 1.0, 1.2),
+    "negative-coordinates": lambda: (_cloud(14, 20000, -7.0, -0.5), 1.0, 0.1),
+    "faces-block1": lambda: (_face_cloud(1.0, 0.1), 1.0, 0.1),
+    "faces-block4": lambda: (_face_cloud(4.0, 0.4), 4.0, 0.4),
+    "faces-block0.5": lambda: (_face_cloud(0.5, 0.05), 0.5, 0.05),
+    "faces-block1-buffer0.6": lambda: (_face_cloud(1.0, 0.6), 1.0, 0.6),
+    # halo faces a float32 point can sit on exactly
+    "faces-block1-buffer0.25": lambda: (_face_cloud(1.0, 0.25), 1.0, 0.25),
+    "min-points": lambda: (_min_points_cloud(), 1.0, 0.1),
+    "no-blocks": lambda: (_cloud(15, 500, -1.0, 1.0), 1.0, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_blocks_matches_plain(gxx, case):
+    xyz, block, buffer = TILE_CASES[case]()
+    ids = _kept_ids(xyz, block) if case != "no-blocks" else np.zeros((0, 3), np.int64)
+    offsets, rows, interior, tests = native.tile_blocks(xyz, ids, block, buffer)
+    ref = native.tile_blocks_plain(xyz, ids, block, buffer)
+    for got, want in zip((offsets, rows, interior), ref):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert len(offsets) == len(ids) + 1 and ref[3] == len(xyz) * len(ids)
+    # a test a block whose buffered slab holds the point on every axis: a
+    # point lies in at most ceil(1 + 2 buffer / block) slabs an axis
+    assert tests <= int(np.ceil(1 + 2 * buffer / block)) ** 3 * len(xyz)
+    assert tests >= len(rows)
+    if case == "min-points":
+        assert ids.tolist() == [[0, 1, 0], [1, 0, 0]]
+    if case in ("block1-buffer0.6", "block1-buffer1.2"):
+        # three or four blocks an axis: some point lies in more than 2 x 2 x 2
+        # halos, or more than 3 x 3 x 3
+        assert np.bincount(rows).max() > (8 if buffer < block else 27)
+    if case.startswith("faces"):
+        assert 0 < interior.sum() < len(interior)
+
+
+def test_tile_blocks_checks_its_input(gxx):
+    xyz = _cloud(16, 100)
+    with pytest.raises(ValueError, match="repeat"):
+        native.tile_blocks(xyz, [[0, 0, 0], [0, 0, 0]], 1.0, 0.1)
+    with pytest.raises(ValueError, match=r"\[B, 3\]"):
+        native.tile_blocks(xyz, [0, 0, 0], 1.0, 0.1)
+    with pytest.raises(ValueError, match="positive"):
+        native.tile_blocks(xyz, [[0, 0, 0]], 0.0, 0.1)
+
+
 def test_entry_points_check_shapes(gxx):
     with pytest.raises(ValueError, match=r"\[N, 3\]"):
         native.voxelize(np.zeros((4, 2), np.float32), 0.1, np.zeros(3))
@@ -114,6 +196,27 @@ def test_the_main_path_goes_through_the_library(gxx, monkeypatch):
     xyz = _cloud(6, 8000, 0.0, 3.0)
     tiler = tds.BlockTiler(Cloud(xyz=xyz), 0.01, 2.0, 0.2)
     assert len(calls) == len(tiler.blocks) >= 2
+
+
+def test_the_forward_tiles_through_the_library_and_counts_its_tests(gxx, monkeypatch):
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    calls = []
+    tile_blocks = native.tile_blocks
+
+    def counted(*a):
+        calls.append(tile_blocks(*a))
+        return calls[-1]
+
+    monkeypatch.setattr(native, "tile_blocks", counted)
+    xyz = _cloud(6, 8000, 0.0, 3.0)
+    mi = ModelInference("smart_tree_tpu/weights/noble-elevator-58.npz", device="cpu",
+                        block_size=2.0, buffer_size=0.2)
+    stats = {}
+    mi.forward(Cloud(xyz=xyz), stats=stats)
+    assert len(calls) == 1 and len(calls[0][0]) > 2
+    assert stats["tile_box_tests"] == calls[0][3]
+    assert len(calls[0][1]) <= stats["tile_box_tests"] <= 27 * len(xyz)
 
 
 def test_a_failed_build_raises_on_the_main_path(gxx, monkeypatch, tmp_path):

@@ -104,8 +104,9 @@ def test_forward_is_unchanged_by_stats_and_its_stages_tile_it(tree, mode):
     for a, b, c in zip(_cloud_fields(plain), _cloud_fields(timed), _cloud_fields(traced)):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
-    assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS}
+    assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS} | {"tile_box_tests"}
     assert all(v >= 0.0 for v in stats.values())
+    assert 0 < stats["tile_box_tests"] <= 8 * len(tree)   # buffer under half a block
     spans = _spans(prof)
     root = "infer.forward"
     assert [s[0] for s in spans].count(root) == 1
