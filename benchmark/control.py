@@ -9,11 +9,11 @@ For each seed it makes the cell's pool and takes the sample a run checks
 The program (the cell's entry) serves each sampled cloud and is judged as a
 run judges it (run.compare). The control is the plain reference put in the
 program's place at the precision below the configuration's (TF32 for
-float32, fp8 e4m3 for bfloat16: reference/unet.py's `mode`), its heads in
-the program's output format and, in a pipeline cell, skeletonised by the
-reference; it is judged the same way. One JSON line per seed and side, then
-the largest program reading and the smallest control reading of each
-number.
+float32, fp8 e4m3 for bfloat16: the `mode` of reference/unet.py, which the
+architecture's forward takes), its heads in the program's output format
+and, in a pipeline cell, skeletonised by the reference; it is judged the
+same way. One JSON line per seed and side, then the largest program
+reading and the smallest control reading of each number.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 import run  # noqa: E402
 from stbench import check, entries, spec, traffic  # noqa: E402
+from stbench.weights import weights_path  # noqa: E402
 
 CONTROL = {"float32": "tf32", "bfloat16": "fp8"}
 
@@ -45,8 +46,8 @@ def control_output(cell, xyz, mode, device, with_skeleton):
     from reference.skeleton import skeletonize
 
     cfg = cell.config
-    model = dict(cfg["model"], weights=str(spec.ROOT / cfg["weights"]))
-    heads = forward(xyz, model, device, mode)
+    model = dict(cfg["model"], weights=str(weights_path(cfg, cell.root)))
+    heads = forward(xyz, model, device, mode, root=cell.root)
     cls, mv = check.encode_output(heads, cfg["model"]["medial_classes"])
     lab = SimpleNamespace(xyz=xyz[heads.point], medial_vector=mv, class_l=cls)
     skel = skeletonize(lab.xyz, mv, cls, dict(cfg["skeletonizer"], **cfg["pipeline"])) \
@@ -71,7 +72,7 @@ def main(argv=None):
         print(f"# {msg}", file=sys.stderr, flush=True)
 
     readings = {"program": [], "control": []}
-    entry = entries.make_entry(cfg, mix, args.device) if args.seeds else None
+    entry = entries.make_entry(cfg, mix, args.device, cell.root) if args.seeds else None
     for side, seeds in (("program", args.seeds), ("control", args.control_seeds)):
         for seed in seeds:
             pool = traffic.make_pool(mix, seed, run.traffic_cache(cell.root))

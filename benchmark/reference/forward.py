@@ -1,14 +1,12 @@
-"""Plain reference, the forward: a cloud to per-voxel heads."""
+"""Plain reference, the forward: a cloud to per-voxel heads, by the
+architecture the configuration's `model` section names (`model.arch`,
+SmartTree where it names none; benchmark/arch/<arch>.py)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
-import torch
-
-from .tiling import voxelize_cloud
-from .unet import UNet, build_levels, load_checkpoint
 
 
 @dataclass
@@ -22,16 +20,11 @@ class Heads:
     logits: np.ndarray      # [n,2] float32
 
 
-def forward(xyz, model, device="cpu", mode=None) -> Heads:
+def forward(xyz, model, device="cpu", mode=None, root=None) -> Heads:
     """The heads of every interior voxel of `xyz` [N,3] float32 under the
-    configuration's `model` section; `mode` as `unet._round`."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    vox = voxelize_cloud(xyz, model["voxel_size"], model["block_size"], model["buffer_size"])
-    net = UNet(load_checkpoint(model["weights"]), device, mode)
-    levels = build_levels(vox.coords, vox.side, device=device)
-    order = levels[0].order.cpu().numpy()
-    feats = torch.from_numpy(vox.feats[order]).to(device)
-    r, d, dn, logits = (t.float().cpu().numpy() for t in net(levels, feats))
-    keep = vox.interior[order]
-    return Heads(vox.point[order][keep], r[keep], d[keep], dn[keep], logits[keep])
+    configuration's `model` section; `mode` as `unet._round`; the
+    architecture's file read from the checkout `root` (this one if None)."""
+    from stbench import spec
+
+    arch = spec.arch_module(spec.arch_name(model), spec.ROOT if root is None else root)
+    return arch.forward(xyz, model, device, mode)

@@ -5,7 +5,9 @@ run, one JSON line.
 
 A run makes its cloud pool from the seed (traffic/<mix>.json; the
 generator's clouds are cached under build/ of the checkout), builds the
-cell's entry from its configuration (configs/<config>.json), warms it up on
+cell's entry from its configuration (configs/<config>.json: its
+architecture arch/<arch>.py, its weights a checkpoint of the repository or
+the architecture's seeded draw, cached under build/), warms it up on
 the pool's largest cloud, and drives it in a closed loop (one caller, the
 next cloud when the last one returns, the pool cycled in order) for
 `--seconds`; the window ends with the pass over the pool that crosses the
@@ -13,9 +15,10 @@ deadline.
 With `--trace 0` the line carries the cell's end-to-end metrics, with
 `--trace 1` its per-layer metrics (metrics/<name>.py), the profiler's
 reading of the window's first clouds and the host's stage clocks. Either
-way it then frees the program, runs the plain reference (reference/) on a
-seeded sample of the window's clouds, and sets `correct` by the limits in
-limits/<cell>.json, printing each number beside its limit.
+way it then frees the program, runs the plain reference (reference/, the
+architecture's forward) on a seeded sample of the window's clouds, and
+sets `correct` by the limits in limits/<cell>.json, printing each number
+beside its limit.
 
 Without a card, or with fewer cards than the cell asks for, it exits 2 and
 prints no result. It fails (exit 3, no result) if JAX, flax or the JAX
@@ -51,6 +54,7 @@ sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 from stbench import check, entries, flops, spec, traffic, window  # noqa: E402
 from stbench.record import Record  # noqa: E402
+from stbench.weights import weights_path  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "smart_tree_tpu")
 
@@ -104,7 +108,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None, log=print)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     prepare = entries.ENTRIES[mix["entry"]].prepare
     pool = traffic.make_pool(mix, seed, traffic_cache(cell.root))
-    entry = entries.make_entry(cfg, mix, device)
+    entry = entries.make_entry(cfg, mix, device, cell.root)
     biggest = max(range(len(pool)), key=lambda k: len(pool[k][0]))
     entry(*pool[biggest])                       # warm-up: first launches, builds
     sync()
@@ -184,17 +188,16 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None, log=print)
     card["memory_peak_bytes"] = int(peak)
     result = {"attempted": len(done), "failed": len(failures)}
     levels_of = {}
+    arch = spec.arch_module(spec.arch_name(cfg["model"]), cell.root)
 
     def inventory(k):
-        from reference.tiling import voxelize_cloud
-        from reference.unet import build_levels
-
         if k not in levels_of:
-            m = cfg["model"]
-            vox = voxelize_cloud(prepare(pool[k][0]), m["voxel_size"], m["block_size"],
-                                 m["buffer_size"])
-            levels_of[k] = flops.inventory(build_levels(vox.coords, vox.side, device=device),
-                                           planes=tuple(m["planes"]))
+            ops = arch.inventory(prepare(pool[k][0]), cfg["model"], device)
+            width = flops.WIDTH[precision]
+            log(f"inventory of pool cloud {k}: {len(ops)} operations, "
+                f"{sum(o.flops() for o in ops)} flops, {sum(o.bytes(width) for o in ops)} bytes, "
+                f"bound {sum(o.bound_s(precision) for o in ops)!r} s")
+            levels_of[k] = ops
         return levels_of[k]
 
     if trace:
@@ -240,7 +243,7 @@ def compare(cell, pool, done, kept, seed, device, prepare, log):
 
     cfg, mix = cell.config, cell.traffic
     m = cfg["model"]
-    model = dict(m, weights=str(spec.ROOT / cfg["weights"]))
+    model = dict(m, weights=str(weights_path(cfg, cell.root)))
     answered = [i for i in range(len(done)) if kept.get(i) is not None]
     if not answered:
         return {}
@@ -253,7 +256,7 @@ def compare(cell, pool, done, kept, seed, device, prepare, log):
         k = done[i][0]
         xyz = prepare(pool[k][0])
         if k not in heads_of:
-            heads_of[k] = forward(xyz, model, device)
+            heads_of[k] = forward(xyz, model, device, root=cell.root)
         heads = heads_of[k]
         lab, skel = kept[i]
         got = check.forward_numbers(*entries.labelled_arrays(lab), xyz, heads,

@@ -9,6 +9,9 @@ file: the system under test and nothing else is imported from the program.
 An entry returns, for each cloud, the labelled cloud the forward produced
 and the skeleton (None for `segment`), and says what the program's
 forward saw (`prepare`), which the reference is handed in its place.
+`ModelInference` loads the configuration's checkpoint file
+(stbench/weights.py: the repository's, or a seeded draw of its
+architecture) with the architecture's `inference_kwargs(model)`, if any.
 """
 
 from __future__ import annotations
@@ -18,20 +21,23 @@ from pathlib import Path
 
 import numpy as np
 
-from . import generator
+from . import generator, spec
 from .spec import ROOT
+from .weights import weights_path
 
 PLYS = ("skeleton.ply", "mesh.ply", "cloud.ply", "seg_cld.ply")
 
 
-def _model_inference(cfg, device):
+def _model_inference(cfg, device, root):
     from smart_tree_tpu_torch.infer.inference import ModelInference
 
     m = cfg["model"]
-    return ModelInference(str(ROOT / cfg["weights"]), voxel_size=m["voxel_size"],
+    arch = spec.arch_module(spec.arch_name(m), root)
+    extra = arch.inference_kwargs(m) if hasattr(arch, "inference_kwargs") else {}
+    return ModelInference(str(weights_path(cfg, root)), voxel_size=m["voxel_size"],
                           block_size=m["block_size"], buffer_size=m["buffer_size"],
                           batch_size=m["batch_size"], precision=m["precision"],
-                          medial_classes=m["medial_classes"], device=device)
+                          medial_classes=m["medial_classes"], device=device, **extra)
 
 
 def _cloud(xyz, rgb):
@@ -43,8 +49,8 @@ def _cloud(xyz, rgb):
 class Segment:
     """ModelInference.forward alone."""
 
-    def __init__(self, cfg, device):
-        self.mi = _model_inference(cfg, device)
+    def __init__(self, cfg, device, root=ROOT):
+        self.mi = _model_inference(cfg, device, root)
 
     @staticmethod
     def prepare(xyz):
@@ -61,12 +67,12 @@ class PipelineEntry:
     """Pipeline.process_cloud with the configuration's skeletoniser and
     post-processing; the forward's output is kept as it passes."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, root=ROOT):
         from smart_tree_tpu_torch.data.augmentations import AugmentationPipeline, CentreCloud
         from smart_tree_tpu_torch.infer.pipeline import Pipeline
         from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
 
-        self.mi = _model_inference(cfg, device)
+        self.mi = _model_inference(cfg, device, root)
         sk = Skeletonizer(device=device, **cfg["skeletonizer"])
         p = cfg["pipeline"]
         self.pipeline = Pipeline(
@@ -108,8 +114,10 @@ class PipelineEntry:
 ENTRIES = {"segment": Segment, "pipeline": PipelineEntry}
 
 
-def make_entry(cfg, mix, device):
-    return ENTRIES[mix["entry"]](cfg, device)
+def make_entry(cfg, mix, device, root=ROOT):
+    """The entry of `mix` over configuration `cfg`, its drawn weights (if
+    any) kept in the checkout `root`."""
+    return ENTRIES[mix["entry"]](cfg, device, root)
 
 
 def labelled_arrays(cloud):

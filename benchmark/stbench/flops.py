@@ -40,8 +40,8 @@ class Conv:
                    self.bytes(WIDTH[precision]) / PEAK_BYTES)
 
 
-def inventory(levels, planes=(8, 16, 32, 64), in_channels=3):
-    """Every conv of one forward over `levels`."""
+def inventory(levels, planes=(8, 16, 32, 64), in_channels=3, heads=HEADS):
+    """Every conv of one forward over `levels`; `heads` each head's widths."""
     n = [lv.coords.shape[0] for lv in levels]
     subm = [int((lv.subm >= 0).sum()) for lv in levels]
     strided = [int((lv.down >= 0).sum()) for lv in levels[1:]]
@@ -55,6 +55,6 @@ def inventory(levels, planes=(8, 16, 32, 64), in_channels=3):
             convs.append(Conv(n[lvl], n[lvl], n[lvl], 2 * p, p, 1))         # Tail identity
             convs.append(Conv(subm[lvl], n[lvl], n[lvl], 2 * p, p, 27))     # Tail
             convs.append(Conv(subm[lvl], n[lvl], n[lvl], p, p, 27))
-    for head in HEADS:
+    for head in heads:
         convs += [Conv(n[0], n[0], n[0], a, b, 1) for a, b in zip(head[:-1], head[1:])]
     return convs

@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX, flax or the JAX package, names
-compared whole; the reference loads nothing of the program either."""
+compared whole; the reference, the architectures (arch/*.py) and their
+seeded draws load nothing of the program either."""
 
 import subprocess
 import sys
@@ -26,6 +27,21 @@ def _loaded(imports):
 
 def test_reference_loads_nothing_of_the_program():
     assert _loaded("import reference.forward, reference.skeleton, reference.tiling") == "[]"
+
+
+def test_architectures_and_their_draws_load_nothing_of_the_program(tmp_path):
+    imports = ("import json\nfrom pathlib import Path\nfrom stbench import spec, weights\n"
+               "for p in sorted((spec.BENCH_DIR / 'arch').glob('*.py')):\n"
+               "    spec.arch_module(p.stem)\n"
+               "for p in sorted((spec.BENCH_DIR / 'configs').glob('*.json')):\n"
+               "    cfg = json.loads(p.read_text())\n"
+               "    spec.arch_module(spec.arch_name(cfg['model']))\n"
+               f"    weights.weights_path(dict(cfg, weights={{'seed': 1}}), Path({str(tmp_path)!r}))")
+    root = tmp_path / "benchmark"
+    root.mkdir()
+    (root / "arch").symlink_to(spec.BENCH_DIR / "arch")
+    assert _loaded(imports) == "[]"
+    assert len(list((tmp_path / "build/benchmark_weights").glob("*.npz"))) == 2
 
 
 def test_harness_and_entries_load_no_jax():

@@ -101,9 +101,108 @@ def test_new_files_are_found_without_an_edit(tmp_path):
 
     assert spec.metric_reader("added.metric", root)(Record([], 1.5, "bfloat16")) == 3.0
     assert all(p.read_bytes() == b for p, b in before.items())
-    # the harness itself names no cell, mix, configuration or metric
+    # the harness itself names no cell, mix, configuration, metric or
+    # architecture but the one a configuration gets where it names none
     code = "".join(p.read_text() for p in (ROOT / "benchmark/stbench").glob("*.py"))
-    code += (ROOT / "benchmark/run.py").read_text()
+    code += (ROOT / "benchmark/run.py").read_text() + (ROOT / "benchmark/control.py").read_text()
+    code += (ROOT / "benchmark/reference/forward.py").read_text()
+    archs = {p.stem for p in (ROOT / "benchmark/arch").glob("*.py")} | {"toy", "ptv3"}
     for n in [w["name"] for w in BENCH["workloads"]] + [c["name"] for c in BENCH["configs"]] \
-            + [m["name"] for m in BENCH["per_layer"]] + ["tree-segment", "tree-pipeline"]:
+            + [m["name"] for m in BENCH["per_layer"]] + ["tree-segment", "tree-pipeline"] \
+            + sorted(archs - {spec.DEFAULT_ARCH}):
         assert n not in code, n
+
+
+TOY = '''"""A toy architecture: SmartTree's reference and weights, one operation
+counted, and a keyword for the program; each call noted in CALLS."""
+
+from dataclasses import dataclass
+from pathlib import Path
+
+from stbench import flops, spec
+
+ST = spec.arch_module("smart_tree", Path(__file__).resolve().parents[2])
+CALLS = []
+
+
+@dataclass
+class Linear:
+    rows: int
+    cin: int
+    cout: int
+    k3: None = None
+
+    def flops(self):
+        return 2 * self.rows * self.cin * self.cout
+
+    def bytes(self, width):
+        return width * (self.rows * self.cin + self.cin * self.cout + self.rows * self.cout)
+
+    def bound_s(self, precision):
+        return max(self.flops() / flops.PEAK_FLOPS[precision],
+                   self.bytes(flops.WIDTH[precision]) / flops.PEAK_BYTES)
+
+
+def forward(xyz, model, device="cpu", mode=None):
+    CALLS.append("forward")
+    return ST.forward(xyz, model, device, mode)
+
+
+def inventory(xyz, model, device="cpu"):
+    CALLS.append("inventory")
+    return [Linear(len(xyz), 3, 5)]
+
+
+def draw(model, seed):
+    CALLS.append(("draw", seed))
+    return ST.draw(model, seed)
+
+
+def inference_kwargs(model):
+    CALLS.append("inference_kwargs")
+    return {"upload_granularity": 2048}
+'''
+
+
+def test_new_architecture_is_found_without_an_edit(tmp_path):
+    """A copied checkout with only benchmark/arch/toy.py, a configuration
+    naming it, a limits file and BENCHMARK.json entries added runs its cell's
+    entry, reference, check and inventory."""
+    import time
+
+    import run
+    from _tiny import tiny_root
+
+    root = tiny_root(tmp_path)
+    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    (root / "benchmark/arch/toy.py").write_text(TOY)
+    cfg = json.loads((ROOT / "benchmark/configs/noble58-fp32.json").read_text())
+    cfg.update(name="toy-cfg", weights={"seed": 5})
+    cfg["model"]["arch"] = "toy"
+    (root / "benchmark/configs/toy-cfg.json").write_text(json.dumps(cfg))
+    (root / "benchmark/limits/toy-cfg.tree-segment.json").write_text(
+        (ROOT / "benchmark/limits/noble58-fp32.tree-segment.json").read_text())
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name="toy-cfg",
+                                 file="benchmark/configs/toy-cfg.json"))
+    bench["workloads"].append({"name": "toy-cfg.tree-segment", "config": "toy-cfg",
+                               "traffic": "tree-segment", "chips": 1, "why": "a test"})
+    for m in bench["per_layer"]:
+        if m["name"] == "step.mfu":
+            m["workloads"].append("toy-cfg.tree-segment")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = spec.load_cell("toy-cfg.tree-segment", root)
+    toy = spec.arch_module(spec.arch_name(cell.config["model"]), root)
+    assert toy is spec.arch_module("toy", root) and toy.__file__.startswith(str(root))
+    res = run.run_cell(cell, 2**31 + 5, 1.0, True, "cpu", t_start=time.perf_counter(),
+                       log=lambda m: None)
+    assert res["correct"], res["checks"]
+    assert set(res["checks"]) == {"rows_bad", "class_flip", "radius_off", "direction_off"}
+    assert ("draw", 5) in toy.CALLS and toy.CALLS.count(("draw", 5)) == 1
+    assert {"inference_kwargs", "forward", "inventory"} <= set(toy.CALLS)
+    # step.mfu over the toy's one operation a cloud
+    assert res["metrics"]["step.mfu"]["value"] > 0
+    assert [p.name for p in (root / "build/benchmark_weights").iterdir()][0].startswith(
+        "toy-cfg.5.")
+    assert all(p.read_bytes() == b for p, b in before.items())
