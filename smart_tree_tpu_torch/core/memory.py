@@ -24,6 +24,11 @@ phase 20): those whole gathers, and 8-byte keys, query keys and indices
 (the port holds keys in int64 and `searchsorted` returns int64) where the
 JAX package's are 4 bytes.
 
+`estimate_serial_hbm` is the model of a Point Transformer V3 forward
+(nn/ptv3.py), in the same terms: per level the rulebooks, orders and patch
+indices of its plan and the encoder's skip features persist; the largest
+of a level's conv gather, attention or MLP transients is the transient.
+
 The budget (`device_budget_bytes`) is a share of the card's own memory,
 the share that the JAX package's default is of the chip it was set for;
 on the CPU it is the JAX package's default itself.
@@ -152,12 +157,75 @@ def max_capacity_for_budget(
 ) -> int:
     """Largest pow2 batch capacity whose estimated peak fits budget_bytes;
     `terms` are estimate_forward_hbm's index_bytes / whole_gather_bytes."""
-    cap = floor
-    best = floor
-    while cap <= ceiling:
-        est = estimate_forward_hbm(cap, planes, factor, itemsize, in_flight, **terms)
-        if est["peak"] > budget_bytes:
-            break
-        best = cap
-        cap *= 2
+    return largest_pow2(lambda cap: estimate_forward_hbm(
+        cap, planes, factor, itemsize, in_flight, **terms)["peak"] <= budget_bytes,
+        floor, ceiling)
+
+
+def largest_pow2(fits, floor: int = 1024, ceiling: int = 1 << 24) -> int:
+    """The largest pow2 capacity from `floor` up to `ceiling` for which
+    `fits(capacity)` holds while every smaller one does (`floor` if none)."""
+    best, cap = floor, floor
+    while cap <= ceiling and fits(cap):
+        best, cap = cap, cap * 2
     return best
+
+
+def estimate_serial_hbm(
+    level_rows: Sequence[int],
+    widths: Sequence[int],
+    mlp_ratio: int = 4,
+    stem_columns: int = 125,
+    in_channels: int = 3,
+    patch: int = 1024,
+    itemsize: int = 4,
+    in_flight: int = 1,
+    index_bytes: int = 4,
+    whole_gather_bytes: int = 0,
+) -> dict:
+    """Estimated peak device bytes of one Point Transformer V3 forward over
+    `level_rows` voxels a level, `widths` each level's widest features:
+    {"peak", "transient", "persistent", "per_level_transient"}, with the
+    1.5x headroom of `estimate_forward_hbm`.
+
+    Per level of n rows and width C, s = 2n + 4 * patch patch slots (a
+    long item pads less than a patch, at most doubling it; four short
+    items at most a patch each):
+      persistent  keys, the 27-column rulebook, the parent map, four orders'
+                  slot indices (gather over s, scatter over n) and their
+                  sort's inverse, the skip features; level 0 the stem's
+                  rulebook;
+      transient   the residual stream and its normed copy, and the largest
+                  of: the CPE's gather (27 C, whole up to
+                  `whole_gather_bytes`, else ROW_CHUNK rows) with its
+                  rounded operand; the attention's qkv, its patch copy in
+                  fp32 and in the operand precision, and its output; the
+                  MLP's hidden activations and their rounded copy; at level
+                  0 the stem's gather."""
+    per_level, persistent = [], 0
+    for lvl, (n, c) in enumerate(zip(level_rows, widths)):
+        n, c = int(n), int(c)
+        slots = 2 * n + 4 * patch
+
+        def gather(rows, width):
+            whole = rows * width * 4 <= whole_gather_bytes
+            return 2 * (rows if whole else min(rows, ROW_CHUNK)) * width * itemsize
+
+        tables = n * (8 + 27 * 4 + index_bytes) + 4 * (slots + 2 * n) * index_bytes
+        if lvl == 0:
+            tables += n * stem_columns * 4
+        persistent += tables + n * c * itemsize
+        stream = 3 * n * c * itemsize
+        attn = (n * 3 * c + slots * 3 * c * 2 + slots * c + n * c) * itemsize
+        mlp = 3 * n * mlp_ratio * c * itemsize
+        conv = gather(n, 27 * c)
+        if lvl == 0:
+            conv = max(conv, gather(n, stem_columns * in_channels))
+        per_level.append(stream + max(conv, attn, mlp))
+    transient = max(per_level)
+    return {
+        "peak": int(1.5 * (transient + persistent * max(1, in_flight))),
+        "transient": transient,
+        "persistent": persistent,
+        "per_level_transient": per_level,
+    }

@@ -4,6 +4,10 @@ Counterpart of `smart_tree_tpu/core/plan.py`: the submanifold rulebook of
 each level is the full [N, 27] one (subm_mode="full", the default) or the
 compact z-window one (subm_mode="z9", `SubmRB9`).
 
+`SerialPlan` is the plan of a Point Transformer V3 (nn/ptv3.py): levels
+joined by grid pooling, each with its serialized orders and patch layout
+(core/serialize.py). It has the exact form only.
+
 A plan has two forms. The static one is the JAX package's: every level a
 buffer of a fixed capacity, so that `jit` compiles one program per shape;
 a level whose voxels do not fit is cut, and `count` shows it. The trainer
@@ -15,14 +19,17 @@ padded and nothing can overflow. Inference plans are exact.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Tuple
 
 import torch
 
-from .coords import INVALID_KEY
-from .rulebook import (SubmRB9, downsample_with_rulebook, inverse_from_strided, subm_rulebook,
-                       subm_rulebook9)
+from ..utils.trace import span
+from .coords import INVALID_KEY, key_bits, unpack_keys
+from .rulebook import (SubmRB9, downsample_with_rulebook, inverse_from_strided, pooling_map,
+                       subm_rulebook, subm_rulebook9)
+from .serialize import ORDERS, PatchLayout, coarser_codes, encode, orders_and_inverses, \
+    patch_layout
 from .sparse_tensor import SparseVoxelTensor
 
 
@@ -101,3 +108,75 @@ def build_plan(
         else:
             levels.append(LevelPlan(keys, active, srb, None, None, count, shape))
     return UNetPlan(levels=tuple(levels), batch_size=batch)
+
+
+@dataclass(frozen=True)
+class SerialLevelPlan:
+    keys: torch.Tensor              # [N_l] sorted voxel keys of this level
+    active: torch.Tensor            # [N_l] bool (every row: the plan is exact)
+    subm_rb: torch.Tensor           # [N_l, 27] submanifold rulebook (the CPE convs)
+    stem_rb: torch.Tensor | None    # [N_0, K^3] the stem's rulebook (level 0 only)
+    gather: torch.Tensor            # [O, slots] row read by each patch slot, per order
+    scatter: torch.Tensor           # [O, N_l] slot of each row's output, per order
+    layout: PatchLayout
+    parent: torch.Tensor | None     # [N_l] row of each voxel's parent in the next level
+    spatial_shape: Tuple[int, int, int]
+
+
+@dataclass(frozen=True)
+class SerialPlan:
+    levels: Tuple[SerialLevelPlan, ...]
+    batch_size: int
+    counters: dict = field(default_factory=dict)   # what a forward over it counts
+
+
+def build_serial_plan(
+    x: SparseVoxelTensor,
+    num_levels: int,
+    patch: int,
+    stem_kernel: int = 5,
+    orders: Tuple[str, ...] = ORDERS,
+    stats: dict | None = None,
+) -> SerialPlan:
+    """The exact plan of `x` (every row a voxel) for `num_levels` levels
+    joined by grid pooling (`pooling_map`). Each level's item offsets are
+    read to the host once (its count and the patch layout follow from
+    them). The codes are made at level 0, at the bits of the grid's edge,
+    and shifted down three bits a level (`coarser_codes`); the orders,
+    their inverses and the patch indices are the `infer.serialize` span."""
+    keys, shape, batch = x.keys, tuple(x.spatial_shape), x.batch_size
+    depth = max(key_bits(shape, batch)[1:])
+    if depth < num_levels:
+        raise ValueError(f"a grid of {shape} has no {num_levels} pooling levels")
+    codes = first = None
+    levels: List[SerialLevelPlan] = []
+    for lvl in range(num_levels):
+        with span(stats, "infer.serialize", "infer.serialize_s"):
+            _, bx, by, bz = key_bits(shape, batch)
+            bounds = torch.tensor([b << (bx + by + bz) for b in range(batch)] + [INVALID_KEY])
+            offsets = torch.searchsorted(keys, bounds.to(keys.device, non_blocking=True))
+            off = offsets.tolist()      # the level's one host read
+            counts = [b - a for a, b in zip(off[:-1], off[1:])]
+            n = off[-1]
+            if lvl == 0 and n != keys.shape[0]:
+                raise ValueError("a serialized plan takes every row as a voxel")
+            keys = keys[:n]
+            if lvl == 0:
+                coords = unpack_keys(keys, shape, batch)
+                codes = encode(coords[:, 1:], coords[:, 0], depth, orders)
+            else:
+                codes = coarser_codes(codes, first[:n].long())
+            order, inverse = orders_and_inverses(codes)
+            layout = patch_layout(offsets, counts, patch)
+            gather, scatter = order[:, layout.gather], layout.unpad[inverse]
+        subm = subm_rulebook(keys, shape, batch, 3)
+        stem = subm_rulebook(keys, shape, batch, stem_kernel) if lvl == 0 else None
+        parent = None
+        if lvl < num_levels - 1:
+            pkeys, first, inv, pshape = pooling_map(keys, shape, batch)
+            parent = inv.long()
+        levels.append(SerialLevelPlan(keys, torch.ones_like(keys, dtype=torch.bool), subm, stem,
+                                      gather, scatter, layout, parent, shape))
+        if parent is not None:
+            keys, shape = pkeys, pshape
+    return SerialPlan(levels=tuple(levels), batch_size=batch)

@@ -220,6 +220,28 @@ def downsample_with_rulebook(
     return out_keys, out_shape, count, drb[:out_capacity]
 
 
+def pooling_map(
+    keys: torch.Tensor, spatial_shape: Sequence[int], batch_size: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[int, int, int]]:
+    """The grid pooling of Point Transformer V3 (stride 2): each voxel's
+    parent is the cell at coords >> 1 of the same batch item. Unlike
+    `downsample_with_rulebook` (a 3^3 conv of stride 2, whose outputs reach
+    up to 8 parents a voxel) every voxel has exactly one parent.
+
+    Returns (parent keys [N] sorted, INVALID_KEY past the parents' count;
+    the lowest child row of each parent [N] (N past the count); the parent
+    row of each voxel [N] int32 (-1 for an invalid key); the parents'
+    spatial shape). Nothing is read to the host: the parents are at most N
+    (`unique_keys`' static form at capacity N), and the caller takes the
+    count."""
+    coords = unpack_keys(keys, spatial_shape, batch_size)
+    out_shape = tuple((int(s) - 1) // 2 + 1 for s in spatial_shape)
+    parents = torch.cat([coords[:, :1], coords[:, 1:] >> 1], dim=1)
+    pkeys = pack_coords(parents, out_shape, batch_size, valid=keys != INVALID_KEY)
+    out_keys, first, inverse, _ = unique_keys(pkeys, keys.shape[0])
+    return out_keys, first, inverse, out_shape
+
+
 def inverse_from_strided(drb: torch.Tensor, fine_capacity: int) -> torch.Tensor:
     """Inverse-conv rulebook [fine_capacity, 27] as the transpose of the
     strided one: drb[o, k] = f <=> urb[f, k] = o."""

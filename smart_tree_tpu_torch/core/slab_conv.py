@@ -31,6 +31,16 @@ TILE_ROWS = 128  # output rows per CTA, whatever Cout is (kTile in the source)
 BLOCK_ROWS = 8  # slab starts are rounded down to this many rows
 
 
+MAX_CIN = 64  # the widest input the kernel stages (Cin a multiple of 8 up to it)
+COUTS = (8, 16, 32, 64)  # the output widths it is built for
+
+
+def takes(cin: int, cout: int) -> bool:
+    """Whether a conv of these widths is inside the kernel's envelope
+    (`_check_cuda` raises past it): Cin up to MAX_CIN, Cout one of COUTS."""
+    return cin <= MAX_CIN and cout in COUTS
+
+
 def slab_rows(cin: int) -> int:
     """Table rows per staged slab chunk: 256, and 128 past Cin 32, where the
     smaller staging buffers measured faster on the H100 (two CTAs share an
@@ -98,7 +108,7 @@ def _check_cuda(feats, rulebook, weights) -> None:
     if feats.dtype != torch.float32 or feats.dim() != 2 or not feats.is_contiguous():
         raise ValueError("feats must be a contiguous [N, Cin] float32 tensor")
     n, cin = feats.shape
-    if cin % 8 != 0 or cin > 64 or feats.data_ptr() % 16 != 0:
+    if cin % 8 != 0 or cin > MAX_CIN or feats.data_ptr() % 16 != 0:
         raise ValueError(f"slab kernel takes Cin a multiple of 8 up to 64 (got {cin})")
     if (
         rulebook.dtype != torch.int32
@@ -116,7 +126,7 @@ def _check_cuda(feats, rulebook, weights) -> None:
         or weights.data_ptr() % 16 != 0
     ):
         raise ValueError(f"weights must be a contiguous [27, {cin}, Cout] float32 tensor")
-    if weights.shape[2] not in (8, 16, 32, 64):
+    if weights.shape[2] not in COUTS:
         raise ValueError(f"slab kernel takes Cout in 8/16/32/64 (got {weights.shape[2]})")
 
 

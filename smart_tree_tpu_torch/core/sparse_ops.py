@@ -10,8 +10,11 @@ package's three routes in its order; the thresholds between them are the
 H100's (chip_smoke.py phase 3 (b), NVIDIA H100 80GB HBM3, 700.00 W), not
 the TPU's:
 
-  1. the slab kernel (core/slab_conv.py) for k3 == 27 at bf16 precision,
-     whatever the row count: against route 3 it was faster at every count
+  1. the slab kernel (core/slab_conv.py) for k3 == 27 at bf16 precision
+     inside its widths (`slab_conv.takes`: Cin up to 64, Cout 8/16/32/64;
+     every conv of SmartTree's 8/16/32/64 planes, none of PTv3's CPE convs
+     past 64 channels or its 125-column stem), whatever the row count:
+     against route 3 it was faster at every count
      measured, 37 to 4,194,304 rows, at each (Cin, Cout) of the 8/16/32/64
      model, in three runs (0.039 to 0.116 ms against 0.157 to 0.522 ms at 37
      rows, 0.71 to 7.70 ms against 86 to 190 ms at 4,194,304). The JAX
@@ -147,7 +150,7 @@ class _ChunkedGatherConv(torch.autograd.Function):
     chunk's product into the output, the backward gathers each chunk again
     for dW += gather^T dout and sends dout w2^T back through the valid
     entries with `index_add_`, as `_GatherRows` does. The operands arrive
-    rounded (`_operand`), so the bf16 rule holds: rounded operands, the fp32
+    rounded (`operand`), so the bf16 rule holds: rounded operands, the fp32
     incoming gradient, fp32 gradients."""
 
     @staticmethod
@@ -178,7 +181,9 @@ class _ChunkedGatherConv(torch.autograd.Function):
         return dfeats, None, dw, None
 
 
-def _operand(x: torch.Tensor, precision: str) -> torch.Tensor:
+def operand(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """`x` as a product's operand: float32, rounded to bfloat16's values
+    under "bfloat16"."""
     x = x.to(torch.float32)
     if precision == "bfloat16":
         return _RoundBf16.apply(x)
@@ -203,7 +208,7 @@ def gather_conv(
         return _gather_conv_z(feats, rulebook, weights, cfg)
     k3, cin, cout = weights.shape
     hand = not kernels.needs_grad(feats, weights)
-    if hand and k3 == 27 and cfg.precision == "bfloat16":
+    if hand and k3 == 27 and cfg.precision == "bfloat16" and slab_conv.takes(cin, cout):
         return slab_conv.slab_gather_conv(feats, rulebook, weights).to(feats.dtype)
     if hand and cfg.fused and fused_conv.should_use_fused(rulebook.shape[0], k3, cin, cout):
         return fused_conv.fused_gather_gemm(feats, rulebook, weights)
@@ -215,8 +220,8 @@ def _gather_gemm(feats, rulebook, weights, cfg: ConvConfig, chunked: bool) -> to
     """Route 3: gather(feats by rulebook) @ W in cfg's precision, in row
     chunks when `chunked`."""
     k3, cin, cout = weights.shape
-    f = _operand(feats, cfg.precision)
-    w2 = _operand(weights, cfg.precision).reshape(k3 * cin, cout)
+    f = operand(feats, cfg.precision)
+    w2 = operand(weights, cfg.precision).reshape(k3 * cin, cout)
     if chunked:
         return _ChunkedGatherConv.apply(f, rulebook, w2, cfg.row_chunk).to(feats.dtype)
     return (_GatherRows.apply(f, rulebook) @ w2).to(feats.dtype)
@@ -281,4 +286,4 @@ def _gather_conv_z(feats: torch.Tensor, rb: SubmRB9, weights: torch.Tensor,
 
 def linear(feats: torch.Tensor, weights: torch.Tensor, precision: str = "float32") -> torch.Tensor:
     """Per-voxel linear layer (1x1x1 conv, bias-free): [N, Cin] @ [Cin, Cout]."""
-    return (_operand(feats, precision) @ _operand(weights, precision)).to(feats.dtype)
+    return (operand(feats, precision) @ operand(weights, precision)).to(feats.dtype)

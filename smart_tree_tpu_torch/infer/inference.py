@@ -9,7 +9,7 @@ device, with its three transfer modes:
       for absolute-xyz models (fp16 for 'local' ones) and the interior mask
       as bits, only the rows that hold a voxel (staged to
       `upload_granularity`); the device keeps their active prefix, unpacks
-      coords from the keys (no device sort), runs the plan and SmartTree,
+      coords from the keys (no device sort), runs the plan and the network,
       quantises the heads (`compress_preds`) and partitions the rows, so
       that only the interior rows' int8 class and the medial-class rows'
       fp16 radius and int8 direction come back. Rows of any other class get
@@ -59,6 +59,11 @@ split between the replicas that share a card, and the model counts the
 port's own footprint terms; on the CPU both are the JAX package's (12 GiB),
 so that the CPU splits a cloud into the reference's batches.
 
+The network is the one its checkpoint names (nn/convert.py::load_model):
+SmartTree, or Point Transformer V3 (nn/ptv3.py). Either gives its own plan
+(`build_plan`), footprint (`forward_peak`, `max_batch_capacity`) and heads,
+so every transfer mode, the windowing and the budget serve both alike.
+
 The forward runs eagerly; `precision` ("float32" or "bfloat16") reaches
 every conv as an argument (core/sparse_ops.py). With `fused=True` the convs
 take the fused gather-GEMM kernel, like the JAX package under
@@ -78,13 +83,7 @@ import numpy as np
 import torch
 
 from ..core.coords import INVALID_KEY, pack_coords, pack_coords_np, sort_keys, unpack_keys
-from ..core.memory import (
-    device_budget_bytes,
-    estimate_forward_hbm,
-    footprint_terms,
-    max_capacity_for_budget,
-)
-from ..core.plan import build_plan
+from ..core.memory import device_budget_bytes, footprint_terms
 from ..core.sparse_ops import ConvConfig
 from ..core.sparse_tensor import SparseVoxelTensor
 from ..data.cloud import Cloud
@@ -266,13 +265,8 @@ class ModelInference:
         # model counts the port's own footprint terms. An exact plan's levels
         # can be larger still: `_halves` holds them to the same budget
         self.footprint_terms = footprint_terms(self.devices)
-        self.max_batch_capacity = max_capacity_for_budget(
-            self.hbm_budget_bytes,
-            self.model.unet_planes,
-            factor=1.0,
-            in_flight=max(1, max_in_flight),
-            **self.footprint_terms,
-        )
+        self.max_batch_capacity = self.model.max_batch_capacity(
+            self.hbm_budget_bytes, in_flight=max(1, max_in_flight), **self.footprint_terms)
         # running totals of the bytes each forward moved over the link; the
         # caller reads and resets them
         self.link_bytes = {"upload": 0, "download": 0}
@@ -330,8 +324,8 @@ class ModelInference:
     # -- planning --------------------------------------------------------------
 
     def _plan(self, x):
-        """The exact plan of `x` (level 0 is x's rows)."""
-        return build_plan(x, len(self.model.unet_planes), level_capacity_factor=None)
+        """The model's exact plan of `x` (level 0 is x's rows)."""
+        return self.model.build_plan(x, level_capacity_factor=None, stats=self._stats)
 
     def _halves(self, vb, plan):
         """None where the plan's modelled peak (core/memory.py at its level
@@ -339,10 +333,9 @@ class ModelInference:
         halves of vb's blocks, planned afresh by the caller. A single block
         past the budget runs (None), with a warning."""
         rows = tuple(lv.keys.shape[0] for lv in plan.levels)
-        est = estimate_forward_hbm(rows[0], self.model.unet_planes,
-                                   in_flight=max(1, self.max_in_flight), level_caps=rows,
-                                   **self.footprint_terms)
-        if est["peak"] <= self.hbm_budget_bytes:
+        peak = self.model.forward_peak(rows, in_flight=max(1, self.max_in_flight),
+                                       **self.footprint_terms)
+        if peak <= self.hbm_budget_bytes:
             return None
         halves = halve_batch(vb)
         if halves is None:
@@ -351,9 +344,11 @@ class ModelInference:
         return halves
 
     def _unet(self, x, plan):
-        """SmartTree on one planned batch (one UNet pass): the fp32-or-bf16
-        heads."""
+        """The model on one planned batch (one UNet pass): the fp32-or-bf16
+        heads; the plan's `counters` (a PTv3's), if any, go to `stats`."""
         self.plan_rows.append(tuple(lv.keys.shape[0] for lv in plan.levels))
+        for key, n in getattr(plan, "counters", {}).items():
+            count(self._stats, key, n)
         cfg = ConvConfig(self.precision, fused=self.fused)
         return self.model(plan, x.feats, cfg)
 
@@ -631,7 +626,12 @@ class ModelInference:
         `infer.upload_s`, `infer.plan_s` (input tensors, exact plans with
         their count reads, the budget check), `infer.unet_s` (queueing the
         UNet, the download cull and the downloads) and `infer.collect_s`
-        (the waits for each batch and the host decode)."""
+        (the waits for each batch and the host decode). A PTv3 adds
+        `infer.serialize_s` (its plans' offsets reads, codes, orders and
+        patch indices, inside `infer.plan_s`), the counters `attn_patches`
+        and `attn_pad_rows` (patches attended, rows its padding repeated,
+        summed over the blocks) and, while the profiler records, a range
+        `infer.attention` around each block's attention."""
         with span(stats, "infer.forward"):
             if not self.compact_transfers:
                 p = self.predict(cloud, stats)

@@ -11,6 +11,11 @@ The way back (`variables_from_model`, `save_npz`) splits a state_dict key
 into the flax path again, so a checkpoint the port writes loads in the JAX
 package's `load_npz` and in the port's own.
 
+A Point Transformer V3 checkpoint (nn/ptv3.py) is an `.npz` of the same
+kind whose keys start with `embedding/`, `enc/` and `dec/`, with a third
+collection, `config/head_dim` and `config/patch_size`: `load_model` builds
+the model its keys name.
+
 The reference's own checkpoints are spconv state_dicts (`.pt`): the same
 module paths, BatchNorm leaves named weight / bias / running_mean /
 running_var (and num_batches_tracked, which nothing reads), conv kernels
@@ -26,8 +31,12 @@ import numpy as np
 import torch
 
 from .model import SmartTree
+from .ptv3 import PTv3
 
 _COLLECTIONS = ("params", "batch_stats")
+# settings a checkpoint states beside its variables (a PTv3's head width and
+# patch size); `load_npz` keys them "config.<name>"
+_CONFIG = "config"
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -124,10 +133,24 @@ def load_npz(path) -> Dict[str, torch.Tensor]:
     with np.load(resolve_weights(path)) as data:
         for k in data.files:
             collection, *parts = k.split("/")
-            if collection not in _COLLECTIONS:
+            if collection == _CONFIG:
+                parts = [_CONFIG] + parts
+            elif collection not in _COLLECTIONS:
                 raise ValueError(f"unexpected checkpoint entry {k!r}")
             sd[".".join(parts)] = _tensor(data[k])
     return sd
+
+
+def _head_planes(sd: Mapping[str, torch.Tensor], h: str) -> tuple:
+    """The widths of the SparseFC head `h` in a state_dict."""
+    idxs = sorted(
+        int(k.split(".")[2])
+        for k in sd
+        if k.startswith(h + ".sequence.") and k.endswith(".weight")
+    )
+    pl = [int(sd[f"{h}.sequence.{idxs[0]}.weight"].shape[1])]
+    pl += [int(sd[f"{h}.sequence.{i}.weight"].shape[2]) for i in idxs]
+    return tuple(pl)
 
 
 def model_from_variables(sd: Mapping[str, torch.Tensor]) -> SmartTree:
@@ -140,28 +163,56 @@ def model_from_variables(sd: Mapping[str, torch.Tensor]) -> SmartTree:
             break
         prefix += "U."
 
-    def head_planes(h: str):
-        idxs = sorted(
-            int(k.split(".")[2])
-            for k in sd
-            if k.startswith(h + ".sequence.") and k.endswith(".weight")
-        )
-        pl = [int(sd[f"{h}.sequence.{idxs[0]}.weight"].shape[1])]
-        pl += [int(sd[f"{h}.sequence.{i}.weight"].shape[2]) for i in idxs]
-        return tuple(pl)
-
     return SmartTree(
         input_channels=int(sd["input_conv.sequence.0.weight"].shape[1]),
         unet_planes=tuple(planes),
-        radius_fc_planes=head_planes("radius_head"),
-        direction_fc_planes=head_planes("direction_head"),
-        class_fc_planes=head_planes("class_head"),
+        radius_fc_planes=_head_planes(sd, "radius_head"),
+        direction_fc_planes=_head_planes(sd, "direction_head"),
+        class_fc_planes=_head_planes(sd, "class_head"),
     )
 
 
-def load_model(sd: Mapping[str, torch.Tensor], device: torch.device) -> SmartTree:
-    """An eval-mode SmartTree on `device` holding exactly `sd`."""
-    model = model_from_variables(sd)
+def is_ptv3(sd: Mapping[str, torch.Tensor]) -> bool:
+    """Whether a state_dict is a Point Transformer V3's (it has a stem)."""
+    return "embedding.conv.weight" in sd
+
+
+def _stages(sd: Mapping[str, torch.Tensor], part: str):
+    """(widths, depths) of the encoder's or decoder's stages in a state_dict."""
+    widths, depths = [], []
+    while f"{part}.{len(widths)}.blocks.0.norm1.scale" in sd:
+        s = len(widths)
+        widths.append(int(sd[f"{part}.{s}.blocks.0.norm1.scale"].shape[0]))
+        depths.append(sum(1 for k in sd if k.startswith(f"{part}.{s}.blocks.")
+                          and k.endswith(".norm1.scale")))
+    return tuple(widths), tuple(depths)
+
+
+def ptv3_from_variables(sd: Mapping[str, torch.Tensor]) -> PTv3:
+    """PTv3 with the widths of a state_dict's shapes and its config entries."""
+    stem = sd["embedding.conv.weight"]
+    enc, enc_depths = _stages(sd, "enc")
+    dec, dec_depths = _stages(sd, "dec")
+    return PTv3(
+        input_channels=int(stem.shape[1]),
+        stem_kernel=round(int(stem.shape[0]) ** (1 / 3)),
+        enc_channels=enc, enc_depths=enc_depths, dec_channels=dec, dec_depths=dec_depths,
+        head_dim=int(sd[f"{_CONFIG}.head_dim"]), patch_size=int(sd[f"{_CONFIG}.patch_size"]),
+        mlp_ratio=int(sd["enc.0.blocks.0.mlp.fc1.weight"].shape[1]) // enc[0],
+        radius_fc_planes=_head_planes(sd, "radius_head"),
+        direction_fc_planes=_head_planes(sd, "direction_head"),
+        class_fc_planes=_head_planes(sd, "class_head"),
+    )
+
+
+def load_model(sd: Mapping[str, torch.Tensor], device: torch.device) -> SmartTree | PTv3:
+    """An eval-mode model on `device` holding exactly `sd`: the PTv3 its
+    keys name (`is_ptv3`), else SmartTree."""
+    if is_ptv3(sd):
+        model = ptv3_from_variables(sd)
+        sd = {k: v for k, v in sd.items() if not k.startswith(_CONFIG + ".")}
+    else:
+        model = model_from_variables(sd)
     model.load_state_dict(dict(sd), strict=True)
     return model.to(device).eval()
 

@@ -13,6 +13,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..core.memory import estimate_forward_hbm, max_capacity_for_budget
 from ..core.plan import UNetPlan, build_plan
 from ..core.sparse_ops import ConvConfig
 from ..core.sparse_tensor import SparseVoxelTensor
@@ -67,7 +68,22 @@ class SmartTree(nn.Module):
             "class_l": class_l,
         }
 
-    def build_plan(self, x: SparseVoxelTensor, **kw) -> UNetPlan:
+    def build_plan(self, x: SparseVoxelTensor, stats: dict | None = None, **kw) -> UNetPlan:
         """The plan of `x` for this model's levels (keywords of
-        core/plan.py::build_plan, subm_mode among them)."""
+        core/plan.py::build_plan, subm_mode among them; `stats`, the
+        inference's, gets nothing from SmartTree's plan)."""
         return build_plan(x, num_levels=len(self.unet_planes), **kw)
+
+    def forward_peak(self, level_rows, in_flight: int = 1, **terms) -> int:
+        """The footprint model's peak bytes of a plan of `level_rows`
+        (core/memory.py::estimate_forward_hbm; `terms` its index_bytes and
+        whole_gather_bytes)."""
+        return estimate_forward_hbm(level_rows[0], self.unet_planes, in_flight=in_flight,
+                                    level_caps=level_rows, **terms)["peak"]
+
+    def max_batch_capacity(self, budget_bytes: int, in_flight: int = 1, **terms) -> int:
+        """The largest pow2 batch whose modelled peak fits the budget with
+        every level as large as the batch (factor 1.0), as in the JAX
+        package."""
+        return max_capacity_for_budget(budget_bytes, self.unet_planes, factor=1.0,
+                                       in_flight=in_flight, **terms)

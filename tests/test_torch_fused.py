@@ -85,6 +85,16 @@ ROUTES = [
     ((600000, 27, "float32", True, 4, 8), "fused"),       # table over JAX's 8 MiB
     ((4095, 27, "float32", True, 64, 64), "plain"),       # wide and short: route 3
     ((4096, 27, "float32", True, 64, 64), "fused"),
+    # SmartTree's bf16 convs stay on the slab kernel; PTv3's wider CPE convs
+    # and its 125-column stem take route 3
+    ((65536, 27, "bfloat16", False, 8, 8), "slab"),
+    ((65536, 27, "bfloat16", False, 16, 8), "slab"),        # a Tail conv
+    ((65536, 27, "bfloat16", False, 32, 64), "slab"),       # the deepest Encode
+    ((65536, 27, "bfloat16", False, 64, 64), "slab"),
+    ((65536, 27, "bfloat16", False, 128, 128), "plain"),
+    ((65536, 27, "bfloat16", False, 64, 128), "plain"),
+    ((65536, 27, "bfloat16", False, 512, 512), "plain"),
+    ((65536, 125, "bfloat16", False, 3, 32), "plain"),
 ]
 
 

@@ -229,7 +229,7 @@ def test_gather_conv_takes_route_3_when_a_gradient_is_needed(monkeypatch, cfg):
     np.testing.assert_allclose(out.detach().numpy(), hand.numpy(), rtol=1e-5, atol=1e-5)
     out.sum().backward()
     # d(sum)/dW[k] = sum of the gathered (bf16-rounded where asked) rows
-    src = sparse_ops._operand(feats, cfg.precision)
+    src = sparse_ops.operand(feats, cfg.precision)
     fe = torch.cat([src, torch.zeros(1, feats.shape[1])])
     want = fe[torch.where(rb >= 0, rb, feats.shape[0]).long()].sum(dim=0)  # [K3, Cin]
     np.testing.assert_allclose(w.grad.numpy(), want[:, :, None].expand_as(w).numpy(),
