@@ -191,7 +191,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      timed by CUDA events beside the bound; the count on cells of the
      largest reach (equal counts, its time); on the bench tree also the JAX
      formulation the filter used before (`knn.radius_count`), its shell
-     and its `_exact_keep`; a `{"radius_count": ...}` line.
+     and its `_exact_keep`; a `{"radius_count": ...}` line;
+ 23. the branch tracer (`tracer_phase`): on the inputs phase 8's timed run
+     gave `sample_forest` (phase 8 requires the tracer's launches), the
+     greedy loop with the kernels of csrc/tracer.cu and with the plain step,
+     both on the card, equal state bit for bit; the wrapper, the kernels'
+     device time, the plain step and the bound, each a greedy iteration (the
+     tracer's row of the kernels line).
 Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
 download of the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
@@ -957,6 +963,7 @@ def remaining_phase(torch, np, mi16, batches, labelled, skeleton, ply_expected, 
 
     from smart_tree_tpu_torch.graph import sssp, tree_distances
     from smart_tree_tpu_torch.skeleton import connect_skeletons, sample_tree
+    from smart_tree_tpu_torch.skeleton import path as tpath
     from smart_tree_tpu_torch.viz import viewer
 
     t0 = time.perf_counter()
@@ -1001,8 +1008,11 @@ def remaining_phase(torch, np, mi16, batches, labelled, skeleton, ply_expected, 
                                err_msg="sssp dist")
     _, pred, rd = paths["cpu"]
     mask = s["labels"] == s["labels"][root]
+    tpath.greedy_steps.launches = 0
     trees = {dev: sample_tree(s["pts"], s["radii"], pred, rd, mask, device=dev)
              for dev in ("cuda", "cpu")}
+    if tpath.greedy_steps.launches == 0:
+        raise AssertionError("sample_tree on the card launched no tracer kernel")
     if len(trees["cpu"]) < 2 or list(trees["cuda"]) != list(trees["cpu"]):
         raise AssertionError(f"sample_tree: branches {list(trees['cuda'])} on the card, "
                              f"{list(trees['cpu'])} on the CPU")
@@ -1017,6 +1027,7 @@ def remaining_phase(torch, np, mi16, batches, labelled, skeleton, ply_expected, 
         "skeletons_after_connect_by_max_distance": connected,
         "sssp_reached": int(fin.sum()), "sssp_vertices": n,
         "sample_tree_branches": len(trees["cpu"]),
+        "tracer_launches": tpath.greedy_steps.launches,
     }
 
     # (e) the viewer's geometry against phase 8's PLYs, and the view itself
@@ -2135,6 +2146,92 @@ def radius_count_phase(torch, np, card, clouds):
     return {"card": card, "clouds": rows, "phase_s": time.perf_counter() - t_phase}, rows
 
 
+TRACER_KERNELS = ("seed_trace_kernel", "select_kernel", "write_path_kernel")
+
+
+def tracer_phase(torch, card, inputs, hop_cap: int, max_branches: int) -> dict:
+    """Phase 23: the branch tracer (skeleton/path.py, the kernels of
+    csrc/tracer.cu) on the inputs phase 8's timed pipeline run handed
+    `sample_forest` on the bench tree. The greedy loop through `_rounds`
+    once with the kernels (`greedy_steps`) and once with `greedy_step_plain`,
+    both on the card: the fetched headers and parents, and the state after
+    the last round (dist, allocated, branch_ids, path_branch, path_pos,
+    parents, the header), equal bit for bit. Then, per real greedy
+    iteration: `ms`, the wrapper (`sample_tree_device` as a whole, jump
+    tables included; the host's clock around a synchronised card, the best
+    of three); `kernel_ms`, the three kernels' device time under
+    torch.profiler, those of queued iterations past the end included as far
+    as the profiler records them; `plain_ms`,
+    the plain step on the card (the equality run); `bound_ms`, dist read
+    twice (the seed's max and the select's validity test, 8 bytes a vertex)
+    at the card's memory rate. No library call does a greedy iteration.
+    Returns the kernel's row."""
+    from smart_tree_tpu_torch.skeleton import path as tpath
+
+    t_phase = time.perf_counter()
+
+    def plain_steps(tr, steps):
+        for _ in range(steps):
+            tpath.greedy_step_plain(tr)
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def run():
+        return tpath.sample_tree_device(*inputs, hop_cap, max_branches)
+
+    runs = {}
+    for route, steps in (("kernels", tpath.greedy_steps), ("plain", plain_steps)):
+        tr = tpath._tracer_state(*inputs, hop_cap, max_branches)
+        stats = {}
+        t0 = synced()
+        hdr, parents = tpath._rounds(tr, steps, stats)
+        runs[route] = tr, hdr, parents, stats["tracer_fetches"], synced() - t0
+    (a, hdr, parents, fetches, _), (b, hdr_b, parents_b, fetches_b, plain_s) = \
+        runs["kernels"], runs["plain"]
+    if (hdr, parents, fetches) != (hdr_b, parents_b, fetches_b):
+        raise AssertionError(f"tracer: header {hdr}, {fetches} fetches with the kernels; "
+                             f"{hdr_b}, {fetches_b} with the plain step")
+    for name in ("dist", "allocated", "branch_ids", "path_branch", "path_pos", "parents",
+                 "header"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"tracer: {name} differs between the kernels and the plain step")
+    iters = hdr[tpath.ITERS]
+    if iters < 2 or not hdr[tpath.NO_WORK]:
+        raise AssertionError(f"tracer: the bench tree's loop ended at header {hdr}")
+    del a, b, runs
+    wrapper = []
+    for _ in range(3):
+        t0 = synced()
+        run()
+        wrapper.append(synced() - t0)
+    tpath.greedy_steps.launches = 0
+    prof = kernel_ms_in(torch, run, TRACER_KERNELS)
+    launches = tpath.greedy_steps.launches
+    # every launch of a real iteration, and no other kernel: CUPTI may drop
+    # some of the queued no-op launches past the end (a microsecond each)
+    if any(not iters <= seen <= launches // 3 for _, seen in prof.values()):
+        raise AssertionError(f"profiler saw {prof} tracer kernels, the wrapper counted "
+                             f"{launches} launches for {iters} iterations")
+    n = int(inputs[0].shape[0])
+    row = {
+        "cloud": "bench", "vertices": n, "hop_cap": hop_cap, "iterations": iters, "queued_iterations": launches // 3,
+        "branches": hdr[tpath.COUNT], "fetches": fetches, "max_abs_err": 0,
+        "ms": 1e3 * min(wrapper) / iters,
+        "kernel_ms": sum(ms for ms, _ in prof.values()) / iters,
+        "kernel_ms_a_launch": {k: ms / seen for k, (ms, seen) in prof.items()},
+        "profiled_launches": {k: seen for k, (_, seen) in prof.items()},
+        "plain_ms": 1e3 * plain_s / iters,
+        "bound_ms": 8.0 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "wrapper_s": wrapper, "plain_s": plain_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"tracer: {row} ({card})")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2372,6 +2469,8 @@ def main() -> int:
     from smart_tree_tpu_torch.data.file import ply_element_counts
     from smart_tree_tpu_torch.neighbors import grid_count
     from smart_tree_tpu_torch.scripts.profile_pipeline import bench_pipeline, timed_run
+    from smart_tree_tpu_torch.skeleton import path as tpath
+    from smart_tree_tpu_torch.skeleton import skeletonize
     from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
     from smart_tree_tpu_torch.utils.configs import default_pipeline_config, instantiate
 
@@ -2399,21 +2498,36 @@ def main() -> int:
 
     # 8. the whole pipeline on the bench tree, bf16, PLYs into a temporary directory
     raw_cloud = generate_tree(**BENCH_TREE)[0]
+    tracer_inputs = []
+    forest = skeletonize.sample_forest
+
+    def captured_forest(*a, **k):
+        tracer_inputs[:] = [a[:5], k["hop_cap"], k["max_branches"]]
+        return forest(*a, **k)
+
     with tempfile.TemporaryDirectory() as out_dir:
         pipeline = bench_pipeline(out_dir)
         timed_run(pipeline, raw_cloud)  # warm-up (raises hop_cap if the strict check asks)
         slab_conv.slab_gather_conv.launches = 0
         fused_conv.fused_gather_gemm.launches = 0
         grid_count.grid_radius_count.launches = 0
+        tpath.greedy_steps.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        pipe_stats, skeleton = timed_run(pipeline, raw_cloud)
+        skeletonize.sample_forest = captured_forest
+        try:
+            pipe_stats, skeleton = timed_run(pipeline, raw_cloud)
+        finally:
+            skeletonize.sample_forest = forest
         pipe_slab_launches = slab_conv.slab_gather_conv.launches
         pipe_count_launches = grid_count.grid_radius_count.launches
+        pipe_tracer_launches = tpath.greedy_steps.launches
         pipe_stats["peak_bytes"] = torch.cuda.max_memory_allocated()
         if pipe_slab_launches == 0:
             raise AssertionError("the bf16 pipeline never launched the slab kernel")
         if pipe_count_launches == 0:
             raise AssertionError("the pipeline's outlier filter never launched the count kernel")
+        if pipe_tracer_launches == 0 or not tracer_inputs:
+            raise AssertionError("the pipeline's skeletoniser never launched the tracer's kernels")
         branches = [b for sk in skeleton.skeletons for b in sk.branches.values()]
         if not skeleton.skeletons or max(len(sk.branches) for sk in skeleton.skeletons) < 2:
             raise AssertionError("the pipeline gave no skeleton with two branches")
@@ -2435,7 +2549,7 @@ def main() -> int:
             if size < 12 * counts["vertex"]:
                 raise AssertionError(f"{name}: {size} bytes is short of its vertices")
     pipe_stats.update(card=card, points=len(raw_cloud), slab_launches=pipe_slab_launches,
-                      count_launches=pipe_count_launches,
+                      count_launches=pipe_count_launches, tracer_launches=pipe_tracer_launches,
                       skeleton_length_m=skeleton_length(skeleton),
                       ply_elements=expected)
     log(f"pipeline: {pipe_stats}")
@@ -2718,6 +2832,10 @@ def main() -> int:
         torch, np, card, {"bench": bench_medial, "forest": forest_medial})
     del forest_medial
 
+    # 23. the branch tracer's kernels on phase 8's tracer inputs
+    tracer_row = tracer_phase(torch, card, *tracer_inputs)
+    del tracer_inputs
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2776,6 +2894,16 @@ def main() -> int:
             "library_ms": None,
             "radius_count_ms": count_rows[0]["radius_count_ms"],
             "shapes": count_rows,
+        },
+        {
+            "name": "tracer", "route": "cuda",
+            "source": "smart_tree_tpu_torch/csrc/tracer.cu",
+            "replaces": "smart_tree_tpu/skeleton/path.py:224",
+            "launches": pipe_tracer_launches,
+            "launches_in_sample_tree": remaining["skeleton"]["tracer_launches"],
+            **{k: tracer_row[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")},
+            "shapes": [tracer_row],
         },
     ]
     print(json.dumps({"kernels": entries}), flush=True)

@@ -25,7 +25,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("slab_conv.cu", "fused_conv.cu", "radius_count.cu")
+_SOURCES = ("slab_conv.cu", "fused_conv.cu", "radius_count.cu", "tracer.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,6 +47,11 @@ _SIGNATURES = {
     # cap, certain, possible, stream
     "st_radius_count": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,
                         _I, _P, _P, _P],
+    # pts, radii, jumps, levels, n, dist, allocated, branch_ids, path_branch,
+    # path_pos, parents, max_branches, hop_cap, chain, path, pathv, win, hdr,
+    # steps, stream
+    "st_tracer_steps": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                        _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -159,7 +159,8 @@ class Skeletonizer:
     def forward(self, cloud: Cloud, stats: dict | None = None) -> DisjointTreeSkeleton:
         """`stats`, when given, receives the seconds of each stage (the
         device is then synchronised at stage ends), the stage's counts and
-        the tracer's host fetches (`tracer_fetches`, path.py)."""
+        the tracer's host fetches and greedy iterations (`tracer_fetches`,
+        `tracer_iterations`, path.py)."""
         dev = resolve_device(self.device)
         if len(cloud) == 0:
             return DisjointTreeSkeleton([])

@@ -7,8 +7,8 @@ Imports no JAX, so it runs on a GPU host without it:
 (--noconftest: tests/conftest.py configures JAX). Without a card every test
 here skips. Tolerances: slab kernel atol 2e-4 (bf16 operands on both sides,
 fp32 summation order only); fused kernel rtol 1e-4 / atol 1e-5 (fp32);
-radius count kernel equal int32 bits (the plain version's arithmetic, op by
-op).
+radius count kernel and the tracer's kernels equal bits (the plain
+versions' arithmetic, op by op).
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ from smart_tree_tpu_torch.core import fused_conv, slab_conv
 from smart_tree_tpu_torch.core.plan import build_plan
 from smart_tree_tpu_torch.core.sparse_tensor import SparseVoxelTensor
 from smart_tree_tpu_torch.neighbors import grid_count
+from tracer_trees import grown_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -257,6 +258,93 @@ def test_radius_count_kernel_matches_plain(cuda, cap, cell_scale, monkeypatch):
     keep_cpu = outlier_removal(torch.from_numpy(p), torch.from_numpy(radii), 8,
                                torch.from_numpy(valid), 0.02)
     assert torch.equal(keep.cpu(), keep_cpu)
+
+
+_TRACER_INPUTS = {}
+
+
+def _tracer_inputs(kind, device):
+    """Inputs of the branch tracer, as numpy: "tree", those the
+    Skeletonizer gives it on a synthetic tree (1,491 vertices); "trunk",
+    a straight 1,100-vertex trunk with 600 vertices grown off it, so that
+    a path passes 1,024 hops and many windows."""
+    if kind in _TRACER_INPUTS:
+        return _TRACER_INPUTS[kind]
+    if kind == "tree":
+        from smart_tree_tpu_torch.data.cloud import Cloud
+        from smart_tree_tpu_torch.data.synthetic import generate_tree
+        from smart_tree_tpu_torch.skeleton import skeletonize
+
+        seen = []
+
+        def capture(*a, **k):
+            seen.append([x.cpu().numpy() for x in a[:5]])
+            return sample_forest(*a, **k)
+
+        sample_forest = skeletonize.sample_forest
+        c, _ = generate_tree(seed=3, height=5.0, trunk_radius=0.1, points_per_m2=2000.0)
+        skeletonize.sample_forest = capture
+        try:
+            skeletonize.Skeletonizer(device=device).forward(
+                Cloud(xyz=c.xyz, medial_vector=c.medial_vector))
+        finally:
+            skeletonize.sample_forest = sample_forest
+        out = seen[0]
+    else:
+        out = list(grown_tree(8, 1700, 1100))
+    _TRACER_INPUTS[kind] = out
+    return out
+
+
+def _plain_steps(tr, steps):
+    from smart_tree_tpu_torch.skeleton import path as tpath
+
+    for _ in range(steps):
+        tpath.greedy_step_plain(tr)
+
+
+@pytest.mark.parametrize("kind,hop_cap,max_branches", [
+    ("tree", 4096, 4096), ("tree", 4096, 3), ("tree", 6, 4096),
+    ("trunk", 4096, 4096), ("trunk", 1050, 4096),
+], ids=["all-branches", "branch-cap", "hop-cap", "long-path", "hop-cap-past-a-chunk"])
+def test_tracer_kernels_match_the_plain_step(cuda, kind, hop_cap, max_branches):
+    """The tracer's kernels against greedy_step_plain, both on the card:
+    the same state and header bit for bit, round by round; then the whole
+    sample_tree_device on the card against the CPU."""
+    from smart_tree_tpu_torch.skeleton import path as tpath
+
+    inputs = _tracer_inputs(kind, cuda)
+    got = {}
+    for route, steps in (("kernel", tpath.greedy_steps), ("plain", _plain_steps)):
+        tr = tpath._tracer_state(*[torch.from_numpy(a).to(cuda) for a in inputs], hop_cap,
+                                 max_branches)
+        launches = tpath.greedy_steps.launches
+        stats = {}
+        hdr, parents = tpath._rounds(tr, steps, stats)
+        moved = tpath.greedy_steps.launches - launches
+        assert moved == (3 * tpath.ROUND * stats["tracer_fetches"] if route == "kernel" else 0)
+        got[route] = tr, hdr, parents
+    (a, ha, pa), (b, hb, pb) = got["kernel"], got["plain"]
+    assert ha == hb and pa == pb
+    for name in ("dist", "allocated", "branch_ids", "path_branch", "path_pos", "parents",
+                 "header"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    if max_branches == 3:
+        assert ha[tpath.COUNT] == 3 and ha[tpath.CAP_HIT]
+    else:
+        assert ha[tpath.NO_WORK] and not ha[tpath.CAP_HIT]
+    assert (ha[tpath.HOPS] > 0) == (hop_cap < 4096)
+    if kind == "trunk":  # a path past a chunk of the trace, in many windows; many rounds
+        assert int(a.path_pos.max()) >= 1024 and ha[tpath.ITERS] > tpath.ROUND
+
+    card = tpath.sample_tree_device(*[torch.from_numpy(x).to(cuda) for x in inputs], hop_cap,
+                                    max_branches)
+    cpu = tpath.sample_tree_device(*[torch.from_numpy(x) for x in inputs], hop_cap,
+                                   max_branches)
+    for name in ("path_branch", "path_pos", "branch_ids"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    np.testing.assert_array_equal(card.branch_parents, cpu.branch_parents)
+    assert card[4:] == cpu[4:]
 
 
 def test_fit_smoke_on_the_card_matches_the_cpu(cuda):

@@ -228,8 +228,8 @@ def test_tracer_nearest_vertex_is_exact(centre):
     np.testing.assert_array_equal(sel[clean], want[clean])
     # the windowed form on the valid vertices only, at several windows
     order = np.flatnonzero(path_valid)
-    swept = tpath._select_path_points_chunked(_t(pts), _t(pv), _t(path), _t(radii),
-                                              torch.from_numpy(order)).numpy()
+    swept = tpath._select_path_points_windowed(_t(pts), _t(pv), _t(path), _t(radii),
+                                               torch.from_numpy(order)).numpy()
     np.testing.assert_array_equal(swept[clean], want[clean])
 
 

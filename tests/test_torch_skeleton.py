@@ -19,6 +19,7 @@ from smart_tree_tpu.skeleton.skeletonize import Skeletonizer as JSkeletonizer
 from smart_tree_tpu_torch.data.cloud import Cloud
 from smart_tree_tpu_torch.data.synthetic import generate_tree
 from smart_tree_tpu_torch.skeleton.skeletonize import Skeletonizer
+from tracer_trees import grown_tree
 
 jfilter = importlib.import_module("smart_tree_tpu.skeleton.filter")
 jquant = importlib.import_module("smart_tree_tpu.skeleton.quantize")
@@ -163,8 +164,8 @@ def test_select_path_points_chunked_matches_jax(length):
     radii = rng.uniform(0.01, 0.06, n).astype(np.float32)
     pvalid = rng.uniform(size=n) > 0.2
     path = rng.choice(n, length, replace=False).astype(np.int32)
-    got = tpath._select_path_points_chunked(_t(medial), _t(pvalid), _t(medial), _t(radii),
-                                            _t(path))
+    got = tpath._select_path_points_windowed(_t(medial), _t(pvalid), _t(medial), _t(radii),
+                                             _t(path))
     padded = np.full(hop_cap, -1, np.int32)
     padded[:length] = path
     ref = jpath._select_path_points_chunked(
@@ -225,6 +226,34 @@ def test_tracer_writes_only_real_path_vertices(vertex_zero_on_path):
         assert got.path_branch[0] == -1 == int(ref.path_branch[0])
     runs = dict(tpath._branch_vertex_runs(got.path_branch.numpy(), got.path_pos.numpy(), 2))
     assert len(runs[0]) == 40 and len(runs[1]) == 14  # the whole trunk, the whole side
+
+
+@pytest.mark.parametrize("hop_cap,max_branches", [(512, 4096), (512, 3), (40, 4096)],
+                         ids=["all-branches", "branch-cap", "hop-cap"])
+def test_tracer_rounds_of_one_and_of_many_agree(monkeypatch, hop_cap, max_branches):
+    """Iterations queued past the end of the trace (no work, or the branch
+    cap) change nothing: rounds of 1 and of 32 give the same result, with a
+    fetch a round."""
+    inputs = [_t(a) for a in grown_tree(5, 600, 150, dropped=0.02)]
+    got = {}
+    for rnd in (1, 32):
+        monkeypatch.setattr(tpath, "ROUND", rnd)
+        stats = {}
+        got[rnd] = tpath.sample_tree_device(*inputs, hop_cap, max_branches, stats), stats
+    (a, sa), (b, sb) = got[1], got[32]
+    for name in ("path_branch", "path_pos", "branch_ids"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    np.testing.assert_array_equal(a.branch_parents, b.branch_parents)
+    assert (a.branch_count, a.hop_cap_hits, a.branch_cap_hit) == (
+        b.branch_count, b.hop_cap_hits, b.branch_cap_hit)
+    iters = sa["tracer_iterations"]
+    assert sb["tracer_iterations"] == iters
+    assert sa["tracer_fetches"] == iters + 1 and sb["tracer_fetches"] == iters // 32 + 1
+    if max_branches == 3:
+        assert a.branch_count == 3 and a.branch_cap_hit
+    else:
+        assert iters > 32 and not a.branch_cap_hit
+        assert (a.hop_cap_hits > 0) == (hop_cap == 40)
 
 
 def _assert_same_skeletons(got, ref, lost_vertex=None):

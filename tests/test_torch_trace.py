@@ -26,7 +26,8 @@ FORWARD_SPANS = ("infer.tile", "infer.collate", "infer.pack", "infer.upload",
                  "infer.plan", "infer.unet", "infer.collect")
 PIPELINE_KEYS = ("inference_s", "skeletonize_s", "post_process_s", "save_s", "upload_s",
                  "outlier_filter_s", "reduce_s", "knn_graph_s", "table_shortcuts_s",
-                 "components_s", "sssp_s", "tracer_s", "branches", "tracer_fetches")
+                 "components_s", "sssp_s", "tracer_s", "branches", "tracer_fetches",
+                 "tracer_iterations")
 MODES = {"full-download": dict(compact_transfers=False),
          "compact": dict(),
          "culled": dict(medial_classes=[0])}
@@ -155,26 +156,31 @@ def test_pipeline_stats_hold_the_forward_stages_within_inference(pipeline_runs):
         assert key in stats, key
     forward = sum(stats[f"{s}_s"] for s in FORWARD_SPANS)
     assert 0.0 < forward <= stats["inference_s"]
-    assert stats["tracer_fetches"] >= stats["branches"] + 1
+    assert stats["tracer_iterations"] >= stats["branches"]
+    assert stats["tracer_fetches"] == stats["tracer_iterations"] // tpath.ROUND + 1
 
 
 @pytest.mark.parametrize("max_branches,strict", [(1024, True), (3, False)],
                          ids=["all-branches", "branch-cap"])
 def test_tracer_fetches_are_iterations_plus_the_last(monkeypatch, max_branches, strict):
+    """One fetch a round of ROUND queued iterations, the round that finds
+    no work (or the cap) included; the real iterations are the selections
+    run."""
     c, _ = generate_tree(seed=10, height=2.0, points_per_m2=2500.0, max_depth=1)
     cloud = Cloud(xyz=c.xyz, medial_vector=c.medial_vector)
     iterations = []
-    select = tpath._select_path_points_chunked
+    select = tpath._select_path_points_windowed
 
     def counted(*a):
         iterations.append(1)
         return select(*a)
 
-    monkeypatch.setattr(tpath, "_select_path_points_chunked", counted)
+    monkeypatch.setattr(tpath, "_select_path_points_windowed", counted)
     stats = {}
     Skeletonizer(device="cpu", max_branches=max_branches, strict=strict).forward(
         cloud, stats=stats)
     assert len(iterations) >= 3
-    assert stats["tracer_fetches"] == len(iterations) + 1
+    assert stats["tracer_iterations"] == len(iterations)
+    assert stats["tracer_fetches"] == len(iterations) // tpath.ROUND + 1
     if max_branches == 3:
         assert stats["branches"] == 3
