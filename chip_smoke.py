@@ -67,23 +67,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
      outputs, and the slab kernel must have launched;
  14. the input side and the transfers on the bench tree at bf16: the native
      host dedup against the numpy one on every block (equal results, both
-     tilings timed); ModelInference.forward with compact_transfers=False,
-     compact, and compact + culled (the default configuration), each timed
+     tilings timed); the full download (`predict`, its medial vectors made
+     on the host: `predicted`) and ModelInference.forward without and with
+     the download cull to class 0 (the default configuration), each timed
      at max_in_flight 1 and 2 (equal clouds) with the bytes it moved; culled
      against compact exact (non-medial rows exactly 0), compact against the
      full download at the JAX package's own bounds; the slab kernel must
-     have launched in both compact modes; a culled fp32 forward with
+     have launched in both forwards; a culled fp32 forward with
      fused=True must launch the fused kernel alone and agree with the plain
      culled fp32 forward (at bf16 the slab kernel, faster at every row
      count, takes every 27-column conv before the fused kernel's route);
  15. several devices on the one card: the bench tree's bf16 forward over two
      replicas on cuda:0 (ModelInference(devices=["cuda:0", "cuda:0"]),
-     culled and with the full download) must return the rows of the
-     one-device forward and launch the slab kernel; then one spawned gloo
-     world of two ranks, killed and failed after 120 s, runs fit_smoke on
-     the card and on the CPU (held against each other, the ranks'
-     parameters equal bit for bit) and in a one-rank NCCL group (held
-     against phase 12); a `{"parallel": ...}` line;
+     culled and with the full download of `predicted`) must return the
+     rows of the one-device forward and launch the slab kernel; then one
+     spawned gloo world of two ranks, killed and failed after 120 s, runs
+     fit_smoke on the card and on the CPU (held against each other, the
+     ranks' parameters equal bit for bit) and in a one-rank NCCL group
+     (held against phase 12); a `{"parallel": ...}` line;
  16. the modules ported last: (a) on the bench tree's batches (the exact
      plans the bf16 forward runs) the sorted-lookup `strided_rulebook` and
      `inverse_rulebook` equal the plan's strided and inverse rulebooks entry
@@ -170,10 +171,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      blocks (no forward), and on four dense blocks that the old ceiling
      splits into four batches fp32 predictions within MODEL_TOL, with the
      class agreement; a `{"sizing": ...}` line.
- 21. exact plans (`exact_plan_phase`): (a) the bench tree at bf16 in the
-     full, compact and culled modes: one UNet pass a batch, every plan
-     tensor at its level's exact count (`checked_unet`), B1 launches a
-     forward, seconds (median of 5), the device-busy share of one profiled
+ 21. exact plans (`exact_plan_phase`): (a) the bench tree at bf16 through
+     the full download (`predicted`) and the forward without and with the
+     cull: one UNet pass a batch, every plan tensor at its level's exact
+     count (`checked_unet`), B1 launches a forward, seconds (median of 5), the device-busy share of one profiled
      forward, the peak allocated bytes held against the footprint model at
      the exact counts; (b) at fp32 each bench batch's exact plan against
      static plans at capacities that do not overflow (the trainer's form),
@@ -198,8 +199,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      both on the card, equal state bit for bit; the wrapper, the kernels'
      device time, the plain step and the bound, each a greedy iteration (the
      tracer's row of the kernels line).
-Phases 4, 8, 9 and 13 run the default compact transfers (8 and 9 the culled
-download of the default configuration); 5 and 6 `predict`, the full download.
+Phases 4, 8, 9 and 13 run the forward (8 and 9 with the download cull of
+the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
 pipeline's stage times, the grid KNN's, the training's, the transfers', the
 parallel phase's, the last modules', the tools', the probes', the bench's,
@@ -533,12 +534,33 @@ def skeleton_length(skeleton) -> float:
     return sum(s.length for s in skeleton.skeletons)
 
 
+def predicted(np, mi):
+    """`mi` with its forward taken by its predict(), the full fp32 download:
+    the argmax class and exp(radius) * direction made on the host, rows of a
+    class outside `medial_classes` zeroed, as the forward's Cloud. The
+    phases that hold the forward against the full download run this."""
+    from smart_tree_tpu_torch.data.cloud import Cloud
+
+    def forward(cloud, stats=None):
+        p = mi.predict(cloud, stats)
+        cls = np.argmax(p["class_logits"], axis=1)
+        medial_vector = np.exp(p["radius"]) * p["direction"]
+        if mi.medial_classes is not None:
+            medial_vector[~np.isin(cls, mi.medial_classes)] = 0.0
+        return Cloud(xyz=p["xyz"], rgb=p["rgb"], medial_vector=medial_vector,
+                     class_l=cls.reshape(-1, 1).astype(np.float32), filename=cloud.filename)
+
+    mi.forward = forward
+    return mi
+
+
 def transfer_phase(torch, np, cloud, card):
     """Phase 14 on the bench tree at bf16: the native host dedup against the
-    numpy one on every block, and ModelInference.forward in its three
-    transfer modes (full download, compact, compact + culled) held against
-    each other, with bytes moved and seconds at max_in_flight 1 and 2; then
-    the culled forward with fused=True. Returns the `transfers` line."""
+    numpy one on every block, and the full download (`predicted`) and
+    ModelInference.forward without and with the download cull (modes full,
+    compact and culled) held against each other, with bytes moved and
+    seconds at max_in_flight 1 and 2; then the culled forward with
+    fused=True. Returns the `transfers` line."""
     from smart_tree_tpu_torch.core import fused_conv, slab_conv
     from smart_tree_tpu_torch.data.dataset import BlockTiler, voxelize_host, voxelize_host_plain
     from smart_tree_tpu_torch.infer.inference import ModelInference
@@ -581,7 +603,7 @@ def transfer_phase(torch, np, cloud, card):
         return (out, dt, slab_conv.slab_gather_conv.launches,
                 fused_conv.fused_gather_gemm.launches, dict(mi.link_bytes))
 
-    modes = {"full": make(compact_transfers=False), "compact": make(),
+    modes = {"full": predicted(np, make()), "compact": make(),
              "culled": make(medial_classes=[0])}
     outs, rows = {}, {}
     for name, mi in modes.items():
@@ -681,9 +703,9 @@ def _dp_rank(rank, world, cloud, steps):
 def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
     """Phase 15 on the one card: (a) the bench tree's bf16 forward over two
     replicas on cuda:0 against the single-device forward, culled and with
-    the full download (equal rows; the slab kernel launched); (b) fit_smoke
-    data-parallel on two gloo ranks on the card against the same two ranks on
-    the CPU, and in a one-rank NCCL group against phase 12's one-device
+    the full download of `predicted` (equal rows; the slab kernel
+    launched); (b) fit_smoke data-parallel on two gloo ranks on the card
+    against the same two ranks on the CPU, and in a one-rank NCCL group against phase 12's one-device
     steps (one spawned world: each process takes seconds to start).
     Returns the `parallel` line and the slab launches of one two-replica
     culled forward."""
@@ -704,12 +726,13 @@ def parallel_phase(torch, np, cloud, small_raw, fit_card, card):
 
     result = {"card": card, "forward": {}}
     multi_launches = None
-    for mode, kw in (("culled", dict(medial_classes=[0])),
-                     ("full", dict(compact_transfers=False))):
+    for mode, kw in (("culled", dict(medial_classes=[0])), ("full", {})):
         pair = {}
         for name, devices in (("one", ["cuda:0"]), ("two_replicas", ["cuda:0", "cuda:0"])):
             mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", devices=devices,
                                 **kw)
+            if mode == "full":
+                predicted(np, mi)
             # no warm-up: phase 14 ran these batches in both modes (the time
             # of the two-replica forward includes copying the model twice)
             slab_conv.slab_gather_conv.launches = 0
@@ -1880,10 +1903,11 @@ def checked_unet(mi):
 
 
 def exact_plan_phase(torch, np, card, forest_scan=None):
-    """Phase 21: exact plans on the card. (a) the bench tree at bf16 in the
-    three transfer modes: one UNet pass a batch, every plan tensor at its
-    level's count (`checked_unet`), B1 launches a forward, the forward's
-    seconds (median of 5), the device-busy share of one profiled forward and
+    """Phase 21: exact plans on the card. (a) the bench tree at bf16 through
+    the full download (`predicted`) and the forward without and with the
+    cull: one UNet pass a batch, every plan tensor at its level's count
+    (`checked_unet`), B1 launches a forward, the forward's seconds (median
+    of 5), the device-busy share of one profiled forward and
     the peak allocated bytes against the footprint model at the exact
     counts; (b) at fp32 each bench batch's exact-plan forward against the
     same batch through static plans at capacities that do not overflow (the
@@ -1918,9 +1942,10 @@ def exact_plan_phase(torch, np, card, forest_scan=None):
 
     # (a) the three modes at bf16
     outs = {}
-    for mode, kw in (("full", dict(compact_transfers=False)), ("compact", {}),
-                     ("culled", dict(medial_classes=[0]))):
+    for mode, kw in (("full", {}), ("compact", {}), ("culled", dict(medial_classes=[0]))):
         mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", **kw)
+        if mode == "full":
+            predicted(np, mi)
         batches = [len(b.coords) for b in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(
             4, max_capacity=mi.max_batch_capacity)]
         checked_unet(mi)
@@ -1961,7 +1986,7 @@ def exact_plan_phase(torch, np, card, forest_scan=None):
             raise AssertionError(f"{mode}: other rows than the full download's")
 
     # (b) fp32: exact plans against static plans that do not overflow
-    mi32 = ModelInference(WEIGHTS, batch_size=4, precision="float32", compact_transfers=False)
+    mi32 = ModelInference(WEIGHTS, batch_size=4, precision="float32")
     model, levels = mi32.model, len(mi32.model.unet_planes)
     slab_conv.slab_gather_conv.launches = fused_conv.fused_gather_gemm.launches = 0
     static_err = {}

@@ -10,11 +10,11 @@ the JAX package's TPU bench.
 Workload: `generate_tree(seed=0, height=12, trunk_radius=0.25,
 points_per_m2=12000, foliage_points=20000)`, centred, through
 noble-elevator-58 at bf16 (voxel 0.01 m, block 4 m, buffer 0.4 m, batch 4,
-`level_capacity_factor=0.5` as the JAX bench passes it (unused: the port's
-plans are exact), culled to class 0, batches sized by `ModelInference`'s
-budget). `batch_capacities` are the batches' pow2 capacities (the host's
-batching), `batch_level_rows` the level rows of each batch's exact plan,
-which the roofline (tools/roofline.py) counts.
+exact plans where the JAX bench passes `level_capacity_factor=0.5`, culled
+to class 0, batches sized by `ModelInference`'s budget). `batch_capacities`
+are the batches' pow2 capacities (the host's batching), `batch_level_rows`
+the level rows of each batch's exact plan, which the roofline
+(tools/roofline.py) counts.
 
 `main` is a supervisor. It runs the measurement once, in the shipped
 configuration, in a child process, and always prints one JSON line as the
@@ -179,7 +179,7 @@ def run_bench(
 
     mi = ModelInference(
         weights, voxel_size=0.01, block_size=4.0, buffer_size=0.4, batch_size=4,
-        precision="bfloat16", level_capacity_factor=0.5, medial_classes=(0,), device=dev,
+        precision="bfloat16", medial_classes=(0,), device=dev,
     )
     # the batches' pow2 capacities (their level rows come from the warm-up)
     capacities = [len(vb.coords) for vb in BlockTiler(cloud, 0.01, 4.0, 0.4).batches(

@@ -122,13 +122,16 @@ class VoxelBatch(NamedTuple):
         unpacked from the keys. with_mask=True adds the interior mask of the
         staged sorted rows packed to bits (np.packbits), which the download
         cull needs on the device."""
+        out = self._stage_sorted(*self.key_order(), granularity, res_dtype)
+        return out if with_mask else out[:4]
+
+    def _stage_sorted(self, keys, order, n_act: int, granularity: int, res_dtype):
+        """compact_upload_sorted(with_mask=True) from the batch's
+        `key_order()`, for a caller that keeps the order."""
         assert self.origins is not None and self.voxel_size > 0
-        keys, order, n_act = self.key_order()
         sel = order[: stage_rows(n_act, len(self.coords), granularity)]
-        out = (keys[sel], self._residuals(sel, res_dtype), self.origins.astype(np.float32), n_act)
-        if with_mask:
-            return out + (np.packbits(self.mask[sel]),)
-        return out
+        return (keys[sel], self._residuals(sel, res_dtype), self.origins.astype(np.float32),
+                n_act, np.packbits(self.mask[sel]))
 
 
 def voxelize_host(

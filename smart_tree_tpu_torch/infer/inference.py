@@ -1,27 +1,22 @@
 """Model inference: block-tiled, bucketed sparse-UNet forward.
 
 Counterpart of `smart_tree_tpu/infer/inference.py::ModelInference` on one
-device, with its three transfer modes:
+device. `forward` has one transfer format, the JAX package's compact one
+with its download cull. The host sorts each batch's rows by packed voxel
+key once (`VoxelBatch.key_order`) and uploads the sorted keys (int32 bit
+patterns of the uint32 keys, 4 B a voxel), int8 residuals for absolute-xyz
+models (fp16 for 'local' ones) and the interior mask as bits, only the rows
+that hold a voxel (staged to `upload_granularity`). The device keeps their
+active prefix, unpacks coords from the keys (no device sort), runs the plan
+and the network, quantises the heads (`compress_preds`) and partitions the
+rows, so that only the interior rows' int8 class and the medial-class rows'
+fp16 radius and int8 direction come back. The host places them by the key
+order it sorted by. With `medial_classes` rows of any other class get
+medial_vector = 0; without it every class is medial.
 
-  compact + culled  (`compact_transfers=True` and `medial_classes`, the
-      default configuration): each batch uploads host-sorted packed keys
-      (int32 bit patterns of the uint32 keys, 4 B a voxel), int8 residuals
-      for absolute-xyz models (fp16 for 'local' ones) and the interior mask
-      as bits, only the rows that hold a voxel (staged to
-      `upload_granularity`); the device keeps their active prefix, unpacks
-      coords from the keys (no device sort), runs the plan and the network,
-      quantises the heads (`compress_preds`) and partitions the rows, so
-      that only the interior rows' int8 class and the medial-class rows'
-      fp16 radius and int8 direction come back. Rows of any other class get
-      medial_vector = 0.
-  compact  (`compact_transfers=True`, `medial_classes=None`): the same
-      upload; every active row's quantised heads come back.
-  full download  (`compact_transfers=False`): int16 coords and fp16
-      residuals of the valid rows up, device sort, fp32 heads and the sort
-      order back; the class filter of `medial_classes` is applied on the
-      host.
-      `predict()` always takes this path: full-precision heads for
-      inspection (the JAX package quantises this path too).
+`predict()` is the full-precision path, for inspection: int16 coords and
+fp16 residuals of the valid rows up, device sort, fp32 heads and the sort
+order back.
 
 With more than one device (`devices=`, by default every visible card, as
 the JAX package takes `jax.devices()`) and more than one batch, `forward`
@@ -43,7 +38,7 @@ one above and reruns an overflowed batch at larger capacities, so that
 `jit` compiles one program per shape; the port runs eagerly.)
 
 `max_in_flight` batches are queued before the host collects the oldest: the
-run half of every mode only queues work (pinned uploads, a device-side
+run half of either path only queues work (pinned uploads, a device-side
 partition, downloads into pinned buffers on a copy stream that waits for an
 event of its own batch), and the host waits for that batch's event only, so
 collecting batch i overlaps batch i+1 on the card. On a card each in-flight
@@ -62,7 +57,7 @@ so that the CPU splits a cloud into the reference's batches.
 The network is the one its checkpoint names (nn/convert.py::load_model):
 SmartTree, or Point Transformer V3 (nn/ptv3.py). Either gives its own plan
 (`build_plan`), footprint (`forward_peak`, `max_batch_capacity`) and heads,
-so every transfer mode, the windowing and the budget serve both alike.
+so the transfers, the windowing and the budget serve both alike.
 
 The forward runs eagerly; `precision` ("float32" or "bfloat16") reaches
 every conv as an argument (core/sparse_ops.py). With `fused=True` the convs
@@ -216,10 +211,8 @@ class ModelInference:
         precision: str = "float32",
         model_path: str | Path | None = None,  # reference-config compatibility (unused)
         num_workers: int = 0,  # reference-config compatibility (unused)
-        level_capacity_factor: float = 0.5,  # the JAX keyword (unused: plans are exact)
         max_in_flight: int = 2,
         hbm_budget_bytes: int | None = None,
-        compact_transfers: bool = True,
         upload_granularity: int = 4096,
         medial_classes: Sequence[int] | None = None,
         fused: bool = False,
@@ -252,7 +245,6 @@ class ModelInference:
         self.max_in_flight = max_in_flight
         self.hbm_budget_bytes = (device_budget_bytes(self.devices) if hbm_budget_bytes is None
                                  else hbm_budget_bytes)
-        self.compact_transfers = compact_transfers
         self.upload_granularity = upload_granularity
         self.model = load_model(load_weights(weights_path), self.device)
         self.feature_mode = "local" if self.model.input_channels == 4 else "xyz"
@@ -352,7 +344,7 @@ class ModelInference:
         cfg = ConvConfig(self.precision, fused=self.fused)
         return self.model(plan, x.feats, cfg)
 
-    # -- the full-download path ----------------------------------------------
+    # -- the full-download path (predict) ------------------------------------
 
     def _plan_batch(self, vb):
         """Upload one batch's valid rows (int16 coords, fp16 residuals,
@@ -400,7 +392,7 @@ class ModelInference:
         out_dir.append(direction[keep])
         out_class.append(logits[keep])
 
-    # -- the compact and culled paths ----------------------------------------
+    # -- the forward's path ------------------------------------------------
 
     def _pad_sorted(self, skeys, res, rows: int):
         """A staged sorted upload on the device at `rows` rows: int32 key bit
@@ -429,61 +421,33 @@ class ModelInference:
         feats = torch.where(active[:, None], fv, 0.0)
         return SparseVoxelTensor(keys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
 
-    @torch.no_grad()
-    def _run_batch_compact(self, vb):
-        """Queue one compact batch: the download of the active rows'
-        quantised heads (or a `_Split`)."""
-        with span(self._stats, "infer.pack", "infer.pack_s"):
-            skeys, res, orig, n_act = vb.compact_upload_sorted(self.upload_granularity,
-                                                               self.res_dtype)
-        uploaded = self._upload(skeys.view(np.int32), res, orig)
-        with span(self._stats, "infer.plan", "infer.plan_s"):
-            x = self._sorted_input(vb, n_act, *uploaded)
-            plan = self._plan(x)
-            halves = self._halves(vb, plan)
-        if halves is not None:
-            del x, plan
-            return _Split([(half, self._run_batch_compact(half)) for half in halves])
-        with span(self._stats, "infer.unet", "infer.unet_s"):
-            preds = compress_preds(self._unet(x, plan))
-            return self._download([preds[k] for k in ("radius", "direction", "class_l")])
-
-    @_collect_half
-    def _collect_compact(self, vb, out, sinks):
-        """Read one compact batch into the sinks (xyzrgb, radius, direction,
-        class)."""
-        radius, direction, class_l = out.get()
-        _, order, n_act = vb.key_order()
-        order = order[:n_act]              # active rows are the sorted prefix
-        keep = vb.mask[order]
-        out_xyzrgb, out_radius, out_dir, out_class = sinks
-        out_xyzrgb.append(vb.feats[order[keep]][:, :6])
-        out_radius.append(radius[keep].astype(np.float32))
-        out_dir.append(decode_direction(direction[keep]))
-        out_class.append(class_l[keep])
-
     def _partition(self, preds, active, interior):
         """The download cull on the device: class rows permuted interior-
         first, radius / direction rows (interior and medial class)-first, both
         by a stable sort on the complement so kept rows keep their order (the
-        order the host rebuilds), and the medial count."""
+        order the host rebuilds), and the medial count. Without
+        `medial_classes` every interior row is medial: one permutation."""
         keep_i = active & interior
         cls = preds["class_l"]
-        is_med = functools.reduce(torch.logical_or, [cls == c for c in self.medial_classes])
-        keep_m = keep_i & is_med
         perm_i = torch.sort((~keep_i).to(torch.uint8), stable=True).indices
-        perm_m = torch.sort((~keep_m).to(torch.uint8), stable=True).indices
+        keep_m, perm_m = keep_i, perm_i
+        if self.medial_classes is not None:
+            keep_m = keep_i & functools.reduce(torch.logical_or,
+                                               [cls == c for c in self.medial_classes])
+            perm_m = torch.sort((~keep_m).to(torch.uint8), stable=True).indices
         return (cls[perm_i], preds["radius"][perm_m], preds["direction"][perm_m],
                 keep_m.sum(dtype=torch.int64))
 
     @torch.no_grad()
     def _run_batch_culled(self, vb):
-        """Queue one culled batch: (download of the medial count; the
-        partitioned class, radius and direction on the device), or a
-        `_Split`."""
+        """Queue one batch: (download of the medial count; the partitioned
+        class, radius and direction on the device; the batch's active rows
+        in the key order of the upload), or a `_Split`."""
         with span(self._stats, "infer.pack", "infer.pack_s"):
-            skeys, res, orig, n_act, bits = vb.compact_upload_sorted(
-                self.upload_granularity, self.res_dtype, with_mask=True)
+            keys, order, n_act = vb.key_order()     # the batch's one key sort
+            skeys, res, orig, _, bits = vb._stage_sorted(keys, order, n_act,
+                                                        self.upload_granularity,
+                                                        self.res_dtype)
         keys_d, res_d, orig_d, bits_d = self._upload(skeys.view(np.int32), res, orig, bits)
         with span(self._stats, "infer.plan", "infer.plan_s"):
             x = self._sorted_input(vb, n_act, keys_d, res_d, orig_d)
@@ -498,21 +462,19 @@ class ModelInference:
             cls_p, rad_p, dir_p, n_med = self._partition(preds, x.active, interior)
             # the medial count comes back alone; the three downloads are
             # sliced to it in _collect_culled
-            return self._download([n_med[None]]), (cls_p, rad_p, dir_p)
+            return self._download([n_med[None]]), (cls_p, rad_p, dir_p), order[:n_act]
 
     @_collect_half
     def _collect_culled(self, vb, out, sinks):
-        """Read one culled batch into the sinks. The host rebuilds both
-        device permutations from what it has (its mask and key sort for the
-        interior rows, the downloaded classes for the medial rows), so the
-        radius / direction download covers exactly the medial interior rows;
-        the other interior rows get medial_vector = 0."""
-        small, (cls_p, rad_p, dir_p) = out
+        """Read one batch into the sinks. The host rebuilds both device
+        permutations from what it has (its mask and the run half's key order
+        for the interior rows, the downloaded classes for the medial rows),
+        so the radius / direction download covers exactly the medial
+        interior rows; the other interior rows get medial_vector = 0."""
+        small, (cls_p, rad_p, dir_p), active = out
         m = int(small.get()[0][0])
-        _, order, n_act = vb.key_order()
-        keep = vb.mask[order[:n_act]]       # the device's keep_i over active rows
-        rows = order[:n_act][keep]          # original rows, sorted order
-        n_i = int(keep.sum())
+        rows = active[vb.mask[active]]      # the device's keep_i: original rows, sorted
+        n_i = len(rows)
         if n_i == 0:
             return
         cap = len(vb.coords)
@@ -521,7 +483,8 @@ class ModelInference:
         cls_s, r_s, d_s = self._download(
             [cls_p[:ni_stage], rad_p[:m_stage], dir_p[:m_stage]], small.ready).get()
         cls = cls_s[:n_i]
-        med = np.isin(cls, np.asarray(self.medial_classes, cls.dtype))
+        med = (np.ones(n_i, bool) if self.medial_classes is None
+               else np.isin(cls, np.asarray(self.medial_classes, cls.dtype)))
         if m != int(med.sum()):
             raise RuntimeError(
                 f"download cull: the device counted {m} medial rows, the host "
@@ -611,44 +574,30 @@ class ModelInference:
 
     def forward(self, cloud: Cloud, return_masked: bool = True,
                 stats: dict | None = None) -> Cloud:
-        """Cloud of interior voxels with medial_vector = exp(radius) *
-        direction and the argmax class; with `medial_classes`, rows of any
-        other class have medial_vector = 0. `return_masked` is accepted for
-        the JAX signature and, as there, unused.
+        """Cloud of interior voxels with the argmax class and medial_vector
+        = exp(radius) * direction from the quantised heads (module
+        docstring); with `medial_classes`, rows of any other class have
+        medial_vector = 0. `return_masked` is accepted
+        for the JAX signature and, as there, unused.
 
         `stats`, when given, receives the host seconds of the forward's
         stages, which follow one another and do not nest (utils/trace.py):
         `infer.tile_s` (BlockTiler: block ids, one binning pass, each
         block's dedup; the counter `tile_box_tests` gets the pass's
         point-box tests), `infer.collate_s` (`collate_blocks`),
-        `infer.pack_s` (the host staging of each upload, its key sort
-        included),
-        `infer.upload_s`, `infer.plan_s` (input tensors, exact plans with
-        their count reads, the budget check), `infer.unet_s` (queueing the
-        UNet, the download cull and the downloads) and `infer.collect_s`
-        (the waits for each batch and the host decode). A PTv3 adds
+        `infer.pack_s` (each batch's one key sort and the staging of its
+        upload), `infer.upload_s`, `infer.plan_s` (input tensors, exact
+        plans with their count reads, the budget check), `infer.unet_s`
+        (queueing the UNet, the download cull and the downloads) and
+        `infer.collect_s` (the waits for each batch and the host decode). A PTv3 adds
         `infer.serialize_s` (its plans' offsets reads, codes, orders and
         patch indices, inside `infer.plan_s`), the counters `attn_patches`
         and `attn_pad_rows` (patches attended, rows its padding repeated,
         summed over the blocks) and, while the profiler records, a range
         `infer.attention` around each block's attention."""
         with span(stats, "infer.forward"):
-            if not self.compact_transfers:
-                p = self.predict(cloud, stats)
-                with span(stats, "infer.collect", "infer.collect_s"):
-                    cls = np.argmax(p["class_logits"], axis=1)
-                    medial_vector = np.exp(p["radius"]) * p["direction"]
-                    if self.medial_classes is not None:
-                        medial_vector[~np.isin(cls, self.medial_classes)] = 0.0
-                    return Cloud(xyz=p["xyz"], rgb=p["rgb"], medial_vector=medial_vector,
-                                 class_l=cls.reshape(-1, 1).astype(np.float32),
-                                 filename=cloud.filename)
-            if self.medial_classes is not None:
-                run, collect = "_run_batch_culled", "_collect_culled"
-            else:
-                run, collect = "_run_batch_compact", "_collect_compact"
             out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
-                cloud, run, collect, stats)
+                cloud, "_run_batch_culled", "_collect_culled", stats)
             with span(stats, "infer.collect", "infer.collect_s"):
                 if not out_xyzrgb:  # too sparse to form any block
                     z = np.zeros((0, 3), np.float32)

@@ -8,8 +8,9 @@ card, host and warm state (card only).
 OTHER is the package directory of another tree (for example a `git archive`
 of the parent commit). It is copied under `build/compare/` as the package
 `stt_other` and imported beside this one. Each round times one forward of
-each package in the culled (the default configuration's download) and the
-compact transfer modes, the order of the two packages alternating by round.
+each package with the default configuration's download cull
+(`medial_classes=[0]`, mode `culled`) and without it (`medial_classes=None`,
+mode `compact`), the order of the two packages alternating by round.
 Prints one JSON line: per mode both packages' seconds, their medians, the
 rounds this package was faster, and the other's inter-quartile range.
 """
@@ -31,7 +32,7 @@ REPO = Path(__file__).resolve().parents[2]
 WEIGHTS = REPO / "smart_tree_tpu" / "weights" / "noble-elevator-58.npz"
 BENCH_TREE = dict(seed=0, height=12.0, trunk_radius=0.25, points_per_m2=12000.0,
                   foliage_points=20000)
-MODES = {"culled": dict(medial_classes=[0]), "compact": {}}
+MODES = {"culled": dict(medial_classes=[0]), "compact": dict(medial_classes=None)}
 
 
 def _forwards(pkg: str) -> dict:

@@ -1,23 +1,23 @@
 """Where the time goes in one bf16 forward of the bench tree on the card.
 
     python3 -m smart_tree_tpu_torch.scripts.profile_forward          # the default path
-    python3 -m smart_tree_tpu_torch.scripts.profile_forward --full   # full download
+    python3 -m smart_tree_tpu_torch.scripts.profile_forward --full   # predict()
 
 The bench tree and model configuration are chip_smoke.py's (generate_tree
 seed 0, 12 m, 12000 points/m2, 20000 foliage points, noble-elevator-58,
 bf16, batches sized by `ModelInference`). The default path is the default
-configuration's: compact transfers with the download cull to
-`medial_classes=[0]`; `--full` profiles `compact_transfers=False`. After one
-warm-up forward it prints one JSON line with:
+configuration's: `forward` with the download cull to `medial_classes=[0]`;
+`--full` profiles `predict()`, the full fp32 download. After one warm-up
+pass it prints one JSON line with:
   - host block tiling with the native dedup (`voxelize_host`) and with the
     numpy one (`voxelize_host_plain`), and whether the two tilings agree;
   - per batch, each ended by a device synchronise: the run half (upload,
     the exact plan with its count reads, UNet, partition) and the collect
     half (fetch, download, host reorder), the plan's level rows, and the
     bytes the forward moved each way;
-  - whole forwards at max_in_flight 1 and 2;
-  - torch.profiler's device time by kernel over one more forward, its sum,
-    and the device's busy share of that forward's wall time (the profiler
+  - whole passes at max_in_flight 1 and 2;
+  - torch.profiler's device time by kernel over one more pass, its sum,
+    and the device's busy share of that pass's wall time (the profiler
     adds host overhead, so the busy share is a lower bound).
 Needs a CUDA card.
 """
@@ -79,7 +79,7 @@ def tilings_agree(a: BlockTiler, b: BlockTiler) -> bool:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--full", action="store_true",
-                        help="profile compact_transfers=False instead of the default path")
+                        help="profile predict() instead of the default forward")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_forward needs a CUDA card", file=sys.stderr)
@@ -89,13 +89,12 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cloud = CentreCloud()(generate_tree(**BENCH_TREE)[0])
-    mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16",
-                        compact_transfers=not args.full, medial_classes=[0])
+    mi = ModelInference(WEIGHTS, batch_size=4, precision="bfloat16", medial_classes=[0])
     if args.full:
-        run, collect = mi._run_batch, mi._collect
+        entry, run, collect = mi.predict, mi._run_batch, mi._collect
     else:
-        run, collect = mi._run_batch_culled, mi._collect_culled
-    mi.forward(cloud)  # warm-up
+        entry, run, collect = mi.forward, mi._run_batch_culled, mi._collect_culled
+    entry(cloud)  # warm-up
 
     tiler, native_s = _sync_time(lambda: BlockTiler(cloud, 0.01, 4.0, 0.4))
     plain, numpy_s = _sync_time(lambda: NumpyTiler(cloud, 0.01, 4.0, 0.4))
@@ -118,18 +117,18 @@ def main(argv=None) -> int:
     forward_s = {}
     for k in (1, 2):
         mi.max_in_flight = k
-        _, forward_s[f"in_flight_{k}"] = _sync_time(lambda: mi.forward(cloud))
+        _, forward_s[f"in_flight_{k}"] = _sync_time(lambda: entry(cloud))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = _sync_time(lambda: mi.forward(cloud))
+        _, wall = _sync_time(lambda: entry(cloud))
     rows = [(e.key, e.count, _kernel_us(e)) for e in prof.key_averages()]
     rows = [r for r in rows if r[2] > 0]
     busy_us = sum(r[2] for r in rows)
     rows.sort(key=lambda r: -r[2])
     print(json.dumps({
         "card": card,
-        "path": "full" if args.full else "compact+culled",
+        "path": "predict" if args.full else "forward",
         "points": len(cloud),
         "batches": len(batches),
         "phases": phases,

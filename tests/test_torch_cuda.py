@@ -369,10 +369,10 @@ def test_fit_smoke_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("medial", [None, [0]], ids=["compact", "culled"])
 def test_compact_transfers_on_the_card_match_the_cpu(cuda, medial):
-    """The compact and culled forwards on the card (pinned uploads, downloads
-    on the copy stream, two batches in flight) against the CPU, on a tree cut
-    into several batches. fp32 heads differ between the two within the model
-    tolerance, so a quantised row may move by one fp16 ulp of its log radius
+    """The forward on the card without and with the download cull (pinned
+    uploads, downloads on the copy stream, two batches in flight) against
+    the CPU, on a tree cut into several batches. fp32 heads differ between
+    the two within the model tolerance, so a quantised row may move by one fp16 ulp of its log radius
     (under 0.4 % of the radius) or one 1/127 step of a direction component:
     on rows whose class agrees every component of the medial vector lies
     within (2/127 + 0.4 %) of that row's length; classes agree on 99 % of

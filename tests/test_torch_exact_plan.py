@@ -46,9 +46,10 @@ INPUTS = {
 }
 # tests/test_torch_sizing.py's sparse cloud: one batch of capacity 2048
 # whose level 1 holds several times its voxels; at factor 0.5 the JAX
-# forward reruns it three times
+# forward reruns it three times (the port's plans are exact)
 SPARSE = dict(voxel_size=0.025, block_size=0.5, buffer_size=0.05, batch_size=8,
-              precision="float32", level_capacity_factor=0.5)
+              precision="float32")
+JAX_SPARSE = dict(SPARSE, level_capacity_factor=0.5)
 
 
 def _clustered(seed, grid=20, batch=1, clusters=6, per=40, cap_pad=13):
@@ -175,7 +176,7 @@ def sparse_jax():
         mp.setattr(jinf.ModelInference, "_submit_multichip",
                    lambda *a, **k: pytest.fail("took the multichip path"))
         ref = jinf.ModelInference(WEIGHTS, compact_transfers=False, medial_classes=None,
-                                  **SPARSE).forward(JCloud(xyz=cloud.xyz, rgb=cloud.rgb))
+                                  **JAX_SPARSE).forward(JCloud(xyz=cloud.xyz, rgb=cloud.rgb))
     return cloud, ref, taken
 
 
@@ -188,8 +189,8 @@ def _sorted_rows(xyz, *arrays):
 def test_one_pass_a_batch_gives_the_rows_of_the_jax_reruns(sparse_jax, mode, monkeypatch):
     cloud, ref, taken = sparse_jax
     assert taken[0] is None and len(taken) >= 2          # JAX reran the batch
-    mi = ModelInference(WEIGHTS, device="cpu", compact_transfers=mode != "predict",
-                        medial_classes=(0,) if mode == "culled" else None, **SPARSE)
+    mi = ModelInference(WEIGHTS, device="cpu", medial_classes=(0,) if mode == "culled" else None,
+                        **SPARSE)
     passes = []
     unet = mi._unet
     monkeypatch.setattr(mi, "_unet", lambda x, plan: passes.append(

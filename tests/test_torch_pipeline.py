@@ -10,7 +10,6 @@ heads round differently, so the skeletons are held to their total length
 within 2 % and the PLY vertex and face counts within 5 %.
 """
 
-import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -140,55 +139,44 @@ def test_saved_plys_hold_what_the_skeleton_implies(port_run):
 
 def _stand_in_heads(plan, feats, cfg):
     """Heads that are a fixed function of each voxel's input features, with
-    both classes present: the network's place in the compact-path case."""
+    both classes present: the network's place in test_medial_classes_semantics."""
     x = feats[:, :3].float()
     return {"radius": -3.0 + 0.1 * torch.sin(40.0 * x[:, :1]),
             "direction": torch.cat([torch.ones_like(x[:, :1]), torch.sin(30.0 * x[:, 1:])], 1),
             "class_l": torch.stack([torch.sin(25.0 * x[:, 0]), torch.cos(25.0 * x[:, 2])], 1)}
 
 
-@pytest.mark.parametrize("path", ["full-download", "compact"])
+@pytest.mark.parametrize("path", ["every-class", "compact"])
 def test_medial_classes_semantics(monkeypatch, path):
     """Rows whose argmax class is not in medial_classes come back with
-    medial_vector = 0, the others untouched; () means None. On the
-    full-download path the class filter runs on the host after `predict`;
-    on the compact path the device culls the download."""
+    medial_vector = 0, the others untouched, the device culling the
+    download; () means None. Listing every class culls nothing: the forward
+    equals the None one bit for bit."""
     weights = "smart_tree_tpu/weights/noble-elevator-58.npz"
     rng = np.random.default_rng(0)
-    n = 500
-    compact = path == "compact"
 
     def make(medial):
-        mi = ModelInference(weights, device="cpu", medial_classes=medial,
-                            compact_transfers=compact)
-        if compact:
-            monkeypatch.setattr(mi.model, "forward", _stand_in_heads)
+        mi = ModelInference(weights, device="cpu", medial_classes=medial)
+        monkeypatch.setattr(mi.model, "forward", _stand_in_heads)
         return mi
 
-    culled, everything = make([0]), make(())
-    assert culled.medial_classes == (0,)
+    culled = make([0] if path == "compact" else (0, 1))
+    everything = make(())
+    assert culled.medial_classes == ((0,) if path == "compact" else (0, 1))
     assert everything.medial_classes is None  # an empty sequence means no cull
     assert ModelInference(weights, device="cpu").medial_classes is None
-    if compact:
-        cloud = Cloud(xyz=rng.uniform(0, 1, size=(5000, 3)).astype(np.float32))
-    else:
-        preds = {"xyz": rng.normal(size=(n, 3)).astype(np.float32),
-                 "rgb": rng.uniform(size=(n, 3)).astype(np.float32),
-                 "radius": rng.normal(-3, 0.3, size=(n, 1)).astype(np.float32),
-                 "direction": rng.normal(size=(n, 3)).astype(np.float32),
-                 "class_logits": rng.normal(size=(n, 2)).astype(np.float32)}
-        monkeypatch.setattr(ModelInference, "predict",
-                            lambda self, cloud, stats=None: copy.deepcopy(preds))
-        cloud = Cloud(xyz=preds["xyz"])
+    cloud = Cloud(xyz=rng.uniform(0, 1, size=(5000, 3)).astype(np.float32))
     a, b = culled.forward(cloud), everything.forward(cloud)
     np.testing.assert_array_equal(a.xyz, b.xyz)
     np.testing.assert_array_equal(a.class_l, b.class_l)
-    if not compact:
-        np.testing.assert_array_equal(b.medial_vector,
-                                      np.exp(preds["radius"]) * preds["direction"])
     other = b.class_l[:, 0] != 0
     assert other.any() and (~other).any()
-    assert (a.medial_vector[other] == 0).all() and (b.medial_vector != 0).any(axis=1).all()
+    assert (b.medial_vector != 0).any(axis=1).all()
+    if path == "every-class":
+        for f in ("rgb", "medial_vector"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        return
+    assert (a.medial_vector[other] == 0).all()
     np.testing.assert_array_equal(a.medial_vector[~other], b.medial_vector[~other])
     # what the skeletonizer consumes is the same either way
     np.testing.assert_array_equal(a.filter_by_class([0]).medial_vector,

@@ -31,17 +31,18 @@ GIB = 1 << 30
 PLANES = (8, 16, 32, 64)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-4)
 # a 20^3 grid of 5 cm voxels split into 2 x 2 x 2 blocks of 0.5 m: one batch
-# of capacity 4096 at batch size 8, two under a 2048 ceiling; factor 1.0, so
-# that no level overflows and the JAX side compiles one forward
+# of capacity 4096 at batch size 8, two under a 2048 ceiling; the JAX side
+# at factor 1.0, so that no level overflows and it compiles one forward
 GRID = dict(voxel_size=0.05, block_size=0.5, buffer_size=0.05, batch_size=8,
-            precision="float32", compact_transfers=False, level_capacity_factor=1.0)
+            precision="float32")
+JAX_GRID = dict(GRID, compact_transfers=False, level_capacity_factor=1.0)
 TWO_BATCH_CEILING = 2048
 # 1,500 points scattered over a 40^3 grid of 2.5 cm voxels, eight 0.5 m
 # blocks: one batch of capacity 2048 whose level 1 holds several times its
 # voxels (the JAX package reruns it at factor 0.5 with levels past the batch
 # capacity; the port's exact plan holds them)
 SPARSE = dict(voxel_size=0.025, block_size=0.5, buffer_size=0.05, batch_size=8,
-              precision="float32", level_capacity_factor=0.5)
+              precision="float32")
 
 
 def _cards(monkeypatch, totals):
@@ -135,7 +136,7 @@ def test_ceilings_agree_and_match_jax(monkeypatch):
         "radius": p["radius"], "direction": p["direction"], "class_l": p["class_l"]})
     monkeypatch.setattr(jinf.ModelInference, "_submit_multichip",
                         lambda *a, **k: pytest.fail("took the multichip path"))
-    ref = jinf.ModelInference(WEIGHTS, medial_classes=None, **GRID).forward(
+    ref = jinf.ModelInference(WEIGHTS, medial_classes=None, **JAX_GRID).forward(
         JCloud(xyz=xyz, rgb=rgb))
     mv = np.asarray(ref.medial_vector)
     radius = np.log(np.linalg.norm(mv, axis=1, keepdims=True))
@@ -213,10 +214,8 @@ def test_rerun_past_the_budget_splits(mode):
     budget = memory.estimate_forward_hbm(2048, PLANES, 1.0, in_flight=2)["peak"]
     outs, runs, passes = [], [], []
     for hbm in (12 * GIB, budget):
-        mi = ModelInference(WEIGHTS, device="cpu", hbm_budget_bytes=hbm, compact_transfers=False,
+        mi = ModelInference(WEIGHTS, device="cpu", hbm_budget_bytes=hbm,
                             medial_classes=(0,) if mode == "culled" else None, **SPARSE)
-        if mode == "culled":
-            mi.compact_transfers = True
         assert mi.max_batch_capacity >= 2048   # the tiler's one batch, whole
         name = "_run_batch" if mode == "predict" else "_run_batch_culled"
         inner = getattr(mi, name)

@@ -28,9 +28,11 @@ PIPELINE_KEYS = ("inference_s", "skeletonize_s", "post_process_s", "save_s", "up
                  "outlier_filter_s", "reduce_s", "knn_graph_s", "table_shortcuts_s",
                  "components_s", "sssp_s", "tracer_s", "branches", "tracer_fetches",
                  "tracer_iterations")
-MODES = {"full-download": dict(compact_transfers=False),
-         "compact": dict(),
-         "culled": dict(medial_classes=[0])}
+# the entry point and the ModelInference keywords of each case: `predict`
+# is the full download
+MODES = {"full-download": ("predict", dict()),
+         "compact": ("forward", dict()),
+         "culled": ("forward", dict(medial_classes=[0]))}
 
 
 @pytest.fixture(scope="module")
@@ -90,35 +92,40 @@ def test_spans_are_profiler_host_events_not_user_annotations():
     assert stats["inner_s"] > 0
 
 
-def _cloud_fields(c):
-    return [np.asarray(getattr(c, f)) for f in ("xyz", "rgb", "medial_vector", "class_l")]
+def _fields(out):
+    """The arrays of a forward's Cloud or of predict's dict."""
+    if isinstance(out, dict):
+        return [np.asarray(v) for v in out.values()]
+    return [np.asarray(getattr(out, f)) for f in ("xyz", "rgb", "medial_vector", "class_l")]
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_forward_is_unchanged_by_stats_and_its_stages_tile_it(tree, mode):
-    mi = ModelInference(WEIGHTS, device="cpu", **MODES[mode])
-    plain = mi.forward(tree)
+    entry, kw = MODES[mode]
+    run = getattr(ModelInference(WEIGHTS, device="cpu", **kw), entry)
+    plain = run(tree)
     stats = {}
-    timed = mi.forward(tree, stats=stats)
+    timed = run(tree, stats=stats)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        traced = mi.forward(tree)
-    for a, b, c in zip(_cloud_fields(plain), _cloud_fields(timed), _cloud_fields(traced)):
+        traced = run(tree)
+    for a, b, c in zip(_fields(plain), _fields(timed), _fields(traced)):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
     assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS} | {"tile_box_tests"}
     assert all(v >= 0.0 for v in stats.values())
     assert 0 < stats["tile_box_tests"] <= 8 * len(tree)   # buffer under half a block
     spans = _spans(prof)
-    root = "infer.forward"
-    assert [s[0] for s in spans].count(root) == 1
-    _, r0, r1 = next(s for s in spans if s[0] == root)
     stages = sorted(s for s in spans if s[0] in FORWARD_SPANS)
     assert {s[0] for s in stages} == set(FORWARD_SPANS)
     stages.sort(key=lambda s: s[1])
     for (_, _, end), (_, start, _) in zip(stages, stages[1:]):
         assert end <= start          # one after the other, none inside another
-    assert r0 <= stages[0][1] and stages[-1][2] <= r1
     assert stages[0][0] == "infer.tile"
+    root = "infer.forward"           # forward's own range; predict has none
+    assert [s[0] for s in spans].count(root) == (entry == "forward")
+    if entry == "forward":
+        _, r0, r1 = next(s for s in spans if s[0] == root)
+        assert r0 <= stages[0][1] and stages[-1][2] <= r1
 
 
 @pytest.fixture(scope="module")

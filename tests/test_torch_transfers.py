@@ -1,8 +1,9 @@
-"""Port parity for the compact and culled transfer paths of ModelInference
-(smart_tree_tpu_torch/infer/inference.py) and the host pieces they stand
-on: the host key packing, the compact uploads of VoxelBatch, the quantised
-payload, the device-side pad, one run a batch at any level capacity factor
-(exact plans) and the in-flight window.
+"""Port parity for the transfer path of ModelInference.forward
+(smart_tree_tpu_torch/infer/inference.py), with `medial_classes=None` held
+against the JAX package's compact mode and `medial_classes=[0]` against its
+culled one, and the host pieces it stands on: the host key packing, the
+compact uploads of VoxelBatch, the quantised payload, the device-side pad,
+one run and one key sort a batch (exact plans) and the in-flight window.
 
 Tolerances of the forward parity (both packages compute fp32 heads that
 agree within rtol 1e-3 / atol 1e-4, then both quantise them):
@@ -219,7 +220,7 @@ def runs(request):
     weights = WEIGHTS[request.param]
     cloud, jcloud = _clouds()
     port = ModelInference(weights, device="cpu")
-    assert port.compact_transfers and port.medial_classes is None
+    assert port.medial_classes is None
     assert port.res_dtype == (np.int8 if request.param == "int8" else np.float16)
     vb = _one_batch(tds.BlockTiler(cloud, 0.01, 4.0, 0.4), port)
     captured = []
@@ -326,18 +327,39 @@ def test_culled_equals_compact_on_branch_rows(runs):
 
 def test_link_bytes_are_the_staged_encodings(runs):
     """Bytes over the link in one forward: the one run of the batch uploads
-    exactly the staged sorted encoding (plus the mask bits when culled),
-    smaller than the full path's encoding of the same batch, and the culled
-    download is smaller than the compact one."""
+    exactly the staged sorted encoding and the mask bits, smaller than the
+    full path's encoding of the same batch, and downloads the medial count
+    (8 B), the interior rows' int8 class and the medial rows' fp16 radius
+    and int8 direction, each staged to the granularity. Without
+    `medial_classes` every interior row is medial, so where the cull leaves
+    rows out (synthetic-r3 on TREE) the culled download is smaller; at the
+    default granularity both stage to 4096 rows here, so that pair runs
+    again at 256."""
     vb, moved = runs["vb"], runs["bytes"]
     res_dtype = np.int8 if runs["kind"] == "int8" else np.float16
     skeys, res, orig, _, bits = vb.compact_upload_sorted(4096, res_dtype, with_mask=True)
-    per_run = skeys.nbytes + res.nbytes + orig.nbytes
-    assert moved["compact"]["upload"] == per_run
-    assert moved["culled"]["upload"] == per_run + bits.nbytes
+    per_run = skeys.nbytes + res.nbytes + orig.nbytes + bits.nbytes
+    assert moved["compact"]["upload"] == moved["culled"]["upload"] == per_run
     full = sum(a.nbytes for a in vb.compressed_xyz_upload()) + vb.valid.nbytes
     assert per_run < full
-    assert moved["culled"]["download"] < moved["compact"]["download"]
+    cap, n_i = len(vb.coords), len(runs["out_rows"])
+    m = int((runs["culled"].class_l[:, 0] == 0).sum())
+
+    def download(moved, medial, g):
+        stage_i, stage_m = (tds.stage_rows(n, cap, g) for n in (n_i, m if medial else n_i))
+        assert moved["download"] == 8 + stage_i + stage_m * (2 + 3)
+        return moved["download"]
+
+    assert download(moved["compact"], None, 4096) >= download(moved["culled"], [0], 4096)
+    if runs["kind"] == "fp16":
+        assert m < n_i
+        fine = {}
+        for medial in (None, [0]):
+            mi = ModelInference(WEIGHTS["fp16"], device="cpu", medial_classes=medial,
+                                upload_granularity=256)
+            mi.forward(_clouds()[0])
+            fine[medial is None] = download(mi.link_bytes, medial, 256)
+        assert fine[False] < fine[True]
 
 
 # ---------------------------------------------------------------- one run, window
@@ -346,18 +368,20 @@ def test_link_bytes_are_the_staged_encodings(runs):
 def test_forced_overflow_reruns_the_same_mode_and_gives_the_default_result(medial, monkeypatch):
     cloud, _ = _clouds()
     default = ModelInference(WEIGHTS["fp16"], device="cpu", medial_classes=medial)
-    forced = ModelInference(WEIGHTS["fp16"], device="cpu", medial_classes=medial,
-                            level_capacity_factor=0.1)
-    name = "_run_batch_culled" if medial else "_run_batch_compact"
+    # the JAX keyword that made every level overflow there is not taken
+    with pytest.raises(TypeError, match="level_capacity_factor"):
+        ModelInference(WEIGHTS["fp16"], device="cpu", level_capacity_factor=0.1)
+    forced = ModelInference(WEIGHTS["fp16"], device="cpu", medial_classes=medial)
     calls, passes = [], []
-    run, unet = getattr(forced, name), forced._unet
-    monkeypatch.setattr(forced, name, lambda vb: calls.append(len(vb.coords)) or run(vb))
+    run, unet = forced._run_batch_culled, forced._unet
+    monkeypatch.setattr(forced, "_run_batch_culled",
+                        lambda vb: calls.append(len(vb.coords)) or run(vb))
     monkeypatch.setattr(forced, "_unet", lambda x, plan: passes.append(x.capacity)
                         or unet(x, plan))
     monkeypatch.setattr(forced, "_run_batch", lambda *a, **k: pytest.fail("full path"))
     a, b = forced.forward(cloud), default.forward(cloud)
-    # the factor that made every level overflow is unused: one run and one
-    # UNet pass for the one batch, on the batch's active rows
+    # exact plans: one run and one UNet pass for the one batch, on the
+    # batch's active rows
     (vb,) = tds.BlockTiler(cloud, 0.01, 4.0, 0.4).batches(4, max_capacity=forced.max_batch_capacity)
     assert calls == [len(vb.coords)] and passes == [vb.key_order()[2]]
     for f in ("xyz", "rgb", "medial_vector", "class_l"):
@@ -376,6 +400,23 @@ def test_in_flight_window_gives_identical_clouds(medial):
         outs.append(mi.forward(cloud))
     for f in ("xyz", "rgb", "medial_vector", "class_l"):
         np.testing.assert_array_equal(getattr(outs[0], f), getattr(outs[1], f), err_msg=f)
+
+
+def test_forward_sorts_each_batch_once(monkeypatch):
+    """The run half's key order is the one the collect half places the rows
+    by: one `key_order()` a batch."""
+    cloud, _ = _clouds()
+    mi = ModelInference(WEIGHTS["fp16"], device="cpu", block_size=1.0, buffer_size=0.1,
+                        batch_size=1)
+    n_batches = len(list(tds.BlockTiler(cloud, 0.01, 1.0, 0.1).batches(
+        1, max_capacity=mi.max_batch_capacity)))
+    assert n_batches >= 4
+    calls = []
+    key_order = tds.VoxelBatch.key_order
+    monkeypatch.setattr(tds.VoxelBatch, "key_order",
+                        lambda vb: calls.append(len(vb.coords)) or key_order(vb))
+    assert len(mi.forward(cloud)) > 0
+    assert len(calls) == n_batches
 
 
 def test_device_and_host_medial_counts_must_agree(monkeypatch):
@@ -400,5 +441,4 @@ def test_budget_and_reference_keys():
                             max_in_flight=k, model_path="unused.pt", num_workers=3)
         jmi = jinf.ModelInference(WEIGHTS["int8"], hbm_budget_bytes=budget, max_in_flight=k)
         assert mi.max_batch_capacity == jmi.max_batch_capacity
-        assert (mi.compact_transfers, mi.upload_granularity) == (jmi.compact_transfers,
-                                                                 jmi.upload_granularity)
+        assert mi.upload_granularity == jmi.upload_granularity

@@ -86,7 +86,7 @@ def test_pt_weights_equal_jax_load_variables_and_the_npz(pt_file):
 
 def test_forward_on_the_pt_equals_the_forward_on_the_npz(pt_file):
     cloud = CentreCloud()(generate_tree(**TREE)[0])
-    kw = dict(device="cpu", medial_classes=[0], level_capacity_factor=1.0)  # no reruns
+    kw = dict(device="cpu", medial_classes=[0])
     a = ModelInference(pt_file, **kw).forward(cloud)
     b = ModelInference(NPZ, **kw).forward(cloud)
     assert len(a) > 1000
