@@ -198,7 +198,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      greedy loop with the kernels of csrc/tracer.cu and with the plain step,
      both on the card, equal state bit for bit; the wrapper, the kernels'
      device time, the plain step and the bound, each a greedy iteration (the
-     tracer's row of the kernels line).
+     tracer's row of the kernels line);
+ 24. the forward's device tiler (`tiler_phase`): on the bench tree and the
+     forest, the kernels of csrc/tiler.cu against the plain version and
+     against the host tiler with its key order and staging, bit for bit;
+     wall, kernel, host-yardstick, plain and bound ms a cloud, launches and
+     host reads; the bench tree's forward must launch them (the tiler's row
+     of the kernels line and a `{"tiler": ...}` line).
 Phases 4, 8, 9 and 13 run the forward (8 and 9 with the download cull of
 the default configuration); 5 and 6 `predict`, the full download.
 Then one line {"kernels": [...]}, the forward times, one line each with the
@@ -1515,7 +1521,7 @@ def sizing_phase(torch, np, card):
     tree and the forest's first blocks, and at fp32 equal predictions on
     four dense blocks that the old ceiling splits. Returns the phase's line
     and (d)'s rows."""
-    from smart_tree_tpu_torch.core import slab_conv, sparse_ops
+    from smart_tree_tpu_torch.core import slab_conv, sparse_ops, tiler
     from smart_tree_tpu_torch.core.memory import estimate_forward_hbm, footprint_terms
     from smart_tree_tpu_torch.data.augmentations import CentreCloud
     from smart_tree_tpu_torch.data.dataset import BlockTiler
@@ -1565,8 +1571,10 @@ def sizing_phase(torch, np, card):
         return route3(feats, rulebook, weights, cfg, chunked)
 
     def one_batch(mi, vb):
-        """vb alone through mi's culled path (run, collect)."""
+        """vb (a device tiling's batch) alone through mi's culled path (run,
+        collect), gathered afresh."""
         mi.plan_rows = []
+        vb = tiler.TileBatch(vb.tiling, vb.blocks, vb.batch_size)
         mi._collect_culled(vb, mi._run_batch_culled(vb), ([], [], [], []))
 
     def model_peak(rows, t, in_flight=1):
@@ -1646,13 +1654,16 @@ def sizing_phase(torch, np, card):
     _, inverse, block_points = np.unique(q, axis=0, return_inverse=True, return_counts=True)
     inverse = inverse.reshape(-1)
     dense = np.argsort(block_points)[::-1][:FOREST_DENSE_BLOCKS]
-    real = [("bench_tree", vb) for vb in batches_of(bench_tree, max_cap)]
+    def tile_batches_of(cloud, cap):
+        return tiler.tile_cloud(cloud, 0.01, 4.0, 0.4, dev).batches(4, cap)
+
+    real = [("bench_tree", vb) for vb in tile_batches_of(bench_tree, max_cap)]
     real += [("forest_dense_blocks", vb) for vb in
-             batches_of(forest.filter(np.isin(inverse, dense)), max_cap)]
+             tile_batches_of(forest.filter(np.isin(inverse, dense)), max_cap)]
     for what, vb in real:
         for mi in mis.values():
             row = held(what, mi, lambda: one_batch(mi, vb), 1,
-                       capacity=len(vb.coords), voxels=vb.n_valid)
+                       capacity=vb.capacity, voxels=vb.rows)
             if row["unet_passes"] != 1:
                 raise AssertionError(f"{what}: a batch took {row['unet_passes']} UNet passes")
             rows.append(row)
@@ -2255,6 +2266,190 @@ def tracer_phase(torch, card, inputs, hop_cap: int, max_branches: int) -> dict:
     }
     log(f"tracer: {row} ({card})")
     return row
+
+
+TILER_KERNELS = ("tiler_bin", "tiler_slab_count", "tiler_scan", "tiler_slab_fill",
+                 "tiler_slab_sort", "tiler_slab_emit", "tiler_gather")
+
+
+def tiler_phase(torch, np, card) -> dict:
+    """Phase 24: the forward's device tiler (core/tiler.py, the kernels of
+    csrc/tiler.cu) on the bench tree and the benchmark's forest
+    (`make_forest(6, 8000, 0)`), block 4 m, buffer 0.4 m, voxel 1 cm, batches
+    of 4 at `ModelInference`'s bf16 capacity. For each cloud:
+      (a) the kernels against the plain version (CPU tensors): every array of
+          the tiling and every batch's gather, int8 and fp16 residuals, bit
+          for bit;
+      (b) the kernels against the host path the forward used before:
+          `BlockTiler` batches, each batch's `key_order` and `_stage_sorted`
+          (int8), keys, residuals, interior bits, origins and capacities;
+      (c) a cloud's `ms`: tile_cloud, the grouping and one slot-table upload
+          and gather a batch, the host's clock around a synchronised card
+          (best of 5); `kernel_ms`: the same work's launches queued without
+          the host reads (the two steps, then every batch's gather, scratch
+          allocation included), timed by CUDA events (mean of 20), and the
+          kernels' split under torch.profiler where it records every launch
+          (`kernel_ms_by_kernel`, None where it does not: in the whole smoke
+          it dropped most of them); `host_ms`: the yardstick, BlockTiler with its
+          batches and each batch's key_order and _stage_sorted (best of 3);
+          `plain_ms`: the plain version on the CPU (best of 2); `bound_ms`:
+          the bytes the work needs at the card's memory rate (the points read
+          once, 12 B; the tiling written once, 9 B a voxel; each gathered row
+          read, 9 + 12 B, and written, 16 B); launches and host reads a
+          cloud.
+    Then (d) the bf16 forward of the bench tree launches the tiler's
+    kernels. Returns the phase's line."""
+    from smart_tree_tpu_torch.core import tiler
+    from smart_tree_tpu_torch.data import dataset as tds
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.dataset import BlockTiler
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+    from smart_tree_tpu_torch.tools.bench_scan import make_forest
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    grid = (0.01, 4.0, 0.4)
+    mi = ModelInference(WEIGHTS, precision="bfloat16", medial_classes=(0,))
+    cap = mi.max_batch_capacity
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def device_tiling(device):
+        stats = {}
+        t = tiler.tile_cloud(cloud, *grid, device, stats=stats)
+        batches = t.batches(4, cap)
+        inputs = [tiler.gather(b, torch.from_numpy(b.table()).to(device), True)
+                  for b in batches]
+        return t, batches, inputs, stats
+
+    def host_path():
+        out = []
+        for vb in BlockTiler(cloud, *grid).batches(4, max_capacity=cap):
+            keys, order, n_act = vb.key_order()
+            out.append((vb, vb._stage_sorted(keys, order, n_act, 4096, np.int8)))
+        return out
+
+    rows = []
+    for name, cloud in (("bench", CentreCloud()(generate_tree(**BENCH_TREE)[0])),
+                        ("forest", make_forest(FOREST_TREES, FOREST_POINTS_PER_M2, 0))):
+        got, batches, inputs, stats = device_tiling(dev)
+        ref, ref_batches, ref_inputs, _ = device_tiling(torch.device("cpu"))
+        # (a) kernels against the plain version
+        for field in ("origins", "key", "first", "interior", "vstart"):
+            if not torch.equal(getattr(got, field).cpu(), getattr(ref, field)):
+                raise AssertionError(f"tiler {name}: {field} differs from the plain version")
+        if not (np.array_equal(got.counts, ref.counts)
+                and np.array_equal(got.interior_counts, ref.interior_counts)
+                and got.box_tests == ref.box_tests
+                and [b.blocks.tolist() for b in batches]
+                == [b.blocks.tolist() for b in ref_batches]):
+            raise AssertionError(f"tiler {name}: counts, tests or batches differ")
+        for b, rb in zip(batches, ref_batches):
+            for int8 in (True, False):
+                a = tiler.gather(b, torch.from_numpy(b.table()).to(dev), int8)
+                c = tiler.gather(rb, torch.from_numpy(rb.table()), int8)
+                for x, y, what in zip(a, c, ("keys", "res", "interior", "index", "origins")):
+                    if not torch.equal(x.cpu(), y):
+                        raise AssertionError(f"tiler {name}: a batch's {what} (int8 {int8}) "
+                                             "differs from the plain version")
+        # (b) kernels against the host path
+        host = host_path()
+        if [vb.capacity for vb, _ in host] != [b.capacity for b in batches]:
+            raise AssertionError(f"tiler {name}: capacities differ from the host tiler's")
+        for (vb, (skeys, res, orig, n_act, bits)), (keys, r, interior, _, origins) in zip(
+                host, inputs):
+            same = (np.array_equal(keys.cpu().numpy(), skeys[:n_act].astype(np.int64))
+                    and np.array_equal(r.cpu().numpy(), res[:n_act])
+                    and np.array_equal(interior.cpu().numpy(),
+                                       np.unpackbits(bits, count=n_act).astype(bool))
+                    and np.array_equal(origins.cpu().numpy(), orig))
+            if not same:
+                raise AssertionError(f"tiler {name}: a batch differs from the host path")
+        # (c) times
+        del ref_inputs
+        tiler.tile_cloud.launches = tiler.gather.launches = 0
+        wall = []
+        for _ in range(5):
+            t0 = synced()
+            device_tiling(dev)
+            wall.append(synced() - t0)
+        launches = (tiler.tile_cloud.launches + tiler.gather.launches) // 5
+        xyz = torch.from_numpy(got.xyz).to(dev)
+        ids = torch.from_numpy(tds.kept_blocks(got.xyz, grid[1])).to(dev)
+        faces = tiler.Faces.of(grid[1], grid[2])
+        bits = tiler.key_bits(got.grid_shape, 1)[1]
+        halo = got.box_tests and int(tiler._CudaSteps(xyz, ids, faces, grid[0], got.side,
+                                                       bits).bin()[1])
+        tables = [torch.from_numpy(b.table()).to(dev) for b in batches]
+
+        def queued():
+            work = tiler._CudaSteps(xyz, ids, faces, grid[0], got.side, bits)
+            work.bin()
+            work.sort(halo)
+            for b, table in zip(batches, tables):
+                tiler.gather(b, table, True)
+
+        queued_ms = cuda_time_ms(torch, queued)
+        expected = dict.fromkeys(TILER_KERNELS, 1)
+        expected.update(tiler_scan=2, tiler_gather=len(batches))
+        try:
+            prof = kernel_ms_in(torch, lambda: device_tiling(dev), TILER_KERNELS)
+        except AssertionError as e:   # CUPTI gave no device time in this process
+            log(f"tiler {name}: {e}")
+            prof = {}
+        by_kernel = {k: ms for k, (ms, _) in prof.items()}
+        if any(prof.get(k, (0, 0))[1] < n for k, n in expected.items()):
+            # late in a long process CUPTI has dropped launches: no split
+            log(f"tiler {name}: the profiler saw {prof}; the split by kernel is not measured")
+            by_kernel = None
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host_path()
+            host_s.append(time.perf_counter() - t0)
+        plain_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            device_tiling(torch.device("cpu"))
+            plain_s.append(time.perf_counter() - t0)
+        n, m = len(cloud), len(got.key)
+        gathered = sum(b.rows for b in batches)
+        nbytes = 12 * n + 9 * m + (9 + 12 + 16) * gathered
+        row = {
+            "cloud": name, "points": n, "blocks": len(got.counts), "voxels": m,
+            "batches": len(batches), "box_tests": got.box_tests, "max_abs_err": 0,
+            "ms": 1e3 * min(wall),
+            "kernel_ms": queued_ms,
+            "kernel_ms_by_kernel": by_kernel,
+            "profiled_launches": {k: c for k, (_, c) in prof.items()},
+            "host_ms": 1e3 * min(host_s),
+            "plain_ms": 1e3 * min(plain_s),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": nbytes, "library_ms": None,
+            "launches": launches, "fetches": stats["tile_fetches"],
+            "wall_s": wall, "host_s": host_s, "plain_s": plain_s,
+        }
+        log(f"tiler: {row} ({card})")
+        rows.append(row)
+        del got, ref, batches, ref_batches, inputs, host
+    # (d) the forward on the main path launches the kernels
+    cloud = CentreCloud()(generate_tree(**BENCH_TREE)[0])
+    tiler.tile_cloud.launches = tiler.gather.launches = 0
+    stats = {}
+    mi.forward(cloud, stats=stats)
+    forward = {"tile_launches": tiler.tile_cloud.launches,
+               "gather_launches": tiler.gather.launches,
+               "tile_fetches": stats["tile_fetches"], "tile_box_tests": stats["tile_box_tests"],
+               "tile_s": stats["infer.tile_s"], "collate_s": stats["infer.collate_s"],
+               "pack_s": stats["infer.pack_s"], "upload_s": stats["infer.upload_s"]}
+    if not (forward["tile_launches"] > 0 and forward["gather_launches"] > 0
+            and forward["tile_fetches"] <= 2):
+        raise AssertionError(f"tiler: the forward ran {forward}")
+    return {"card": card, "clouds": rows, "forward": forward,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -2861,6 +3056,9 @@ def main() -> int:
     tracer_row = tracer_phase(torch, card, *tracer_inputs)
     del tracer_inputs
 
+    # 24. the forward's device tiler on the bench tree and the forest
+    tiling = tiler_phase(torch, np, card)
+
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2930,6 +3128,18 @@ def main() -> int:
                                           "bound_ms", "bound_by", "library_ms")},
             "shapes": [tracer_row],
         },
+        {
+            "name": "tiler", "route": "cuda",
+            "source": "smart_tree_tpu_torch/csrc/tiler.cu",
+            "replaces": None,
+            "launches": tiling["forward"]["tile_launches"] + tiling["forward"]["gather_launches"],
+            "max_abs_err": 0,
+            **{k: summed(tiling["clouds"], k) for k in ("ms", "kernel_ms", "plain_ms",
+                                                        "bound_ms")},
+            "host_ms": summed(tiling["clouds"], "host_ms"),
+            "bound_by": "bytes", "library_ms": None,
+            "shapes": tiling["clouds"],
+        },
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({
@@ -2959,6 +3169,7 @@ def main() -> int:
     print(json.dumps({"dispatch": crossover}), flush=True)
     print(json.dumps({"exact_plans": exact_plans}), flush=True)
     print(json.dumps({"radius_count": radius_counts}), flush=True)
+    print(json.dumps({"tiler": tiling}), flush=True)
     if probe_problems:
         raise AssertionError("; ".join(probe_problems))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

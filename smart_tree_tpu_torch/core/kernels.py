@@ -25,13 +25,15 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("slab_conv.cu", "fused_conv.cu", "radius_count.cu", "tracer.cu")
+_SOURCES = ("slab_conv.cu", "fused_conv.cu", "radius_count.cu", "tracer.cu", "tiler.cu")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, so ctypes does not
 # cut 64-bit addresses to int
 _SIGNATURES = {
@@ -52,6 +54,19 @@ _SIGNATURES = {
     # steps, stream
     "st_tracer_steps": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _P, _I, _P],
+    # xyz, n, ids, blocks, block, half_block, half_halo, half_in, reach, origin, hdr,
+    # stream
+    "st_tile_bin": [_P, _L, _P, _I, _D, _D, _D, _D, _I, _P, _P, _P],
+    # xyz, n, ids, blocks, block, half_block, half_halo, half_in, reach, origin, voxel,
+    # side, bits, rows, count, start, rec, tmp, rank, ucount, vstart, key, first,
+    # interior, hdr, stream
+    "st_tile_sort": [_P, _L, _P, _I, _D, _D, _D, _D, _I, _P, _F, _I, _I, _L, _P, _P, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _P, _P],
+    # table, slots, batch_size, rows, key, first, interior, vstart, side, origin, xyz,
+    # voxel, step, bits, int8_res, out_key, out_res, out_interior, out_index,
+    # out_origin, stream
+    "st_tile_gather": [_P, _I, _I, _L, _P, _P, _P, _P, _I, _P, _P, _D, _D, _I, _I, _P, _P, _P,
+                       _P, _P, _P],
 }
 
 _lock = threading.Lock()

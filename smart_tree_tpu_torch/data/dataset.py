@@ -12,7 +12,12 @@ Counterpart of `smart_tree_tpu/data/dataset.py`:
                interior; `batches` packs blocks into padded pow2 capacity
                batches.
 
-Both produce a `VoxelBatch`.
+Both produce a `VoxelBatch`. `ModelInference.forward` no longer calls
+`BlockTiler`, `collate_blocks`, `halve_batch` or a batch's `key_order` and
+`_stage_sorted`: it tiles on the device (core/tiler.py) and shares only
+`kept_blocks`, `grid_side` and `group_blocks` with this module, whose host
+path stays for `predict()`, training and the tests, and as the device
+tiler's reference, bit for bit.
 """
 
 from __future__ import annotations
@@ -69,6 +74,11 @@ class VoxelBatch(NamedTuple):
         centre = self.origins[b] + (self.coords[:, 1:] + 0.5) * self.voxel_size
         res = (self.feats[:, :3] - centre).astype(np.float16)
         return self.coords.astype(np.int16), res, self.origins.astype(np.float32)
+
+    @property
+    def capacity(self) -> int:
+        """Rows of the padded batch."""
+        return len(self.coords)
 
     @property
     def n_valid(self) -> int:
@@ -315,6 +325,49 @@ def collate(
     )
 
 
+def grid_side(voxel_size: float, block_size: float, buffer_size: float) -> int:
+    """The side of the one worst-case grid every block shares (the spatial
+    shape only sets the key bit widths)."""
+    return int(np.ceil((block_size + 2 * buffer_size) / voxel_size)) + 1
+
+
+def cloud_arrays(cloud: Cloud) -> Tuple[np.ndarray, np.ndarray]:
+    """(xyz, rgb) of a cloud as float32 [N, 3]; rgb zeros where it has none."""
+    xyz = np.asarray(cloud.xyz, np.float32)
+    rgb = np.asarray(cloud.rgb, np.float32) if cloud.rgb is not None else np.zeros_like(xyz)
+    return xyz, rgb
+
+
+def kept_blocks(xyz: np.ndarray, block_size: float, min_points: int = 20) -> np.ndarray:
+    """The cells floor(xyz / block_size) holding more than min_points points,
+    int64 [B, 3] in lexicographic order (`native.block_ids`)."""
+    cell, cells = native.block_ids(xyz, block_size)
+    ids = cells[np.bincount(cell, minlength=len(cells)) > min_points].astype(np.int64)
+    return ids[np.lexsort(ids.T[::-1])]
+
+
+def group_blocks(sizes: np.ndarray, batch_size: int, max_capacity: int | None = None
+                 ) -> List[np.ndarray]:
+    """The blocks of each batch, in slot order: greedy over the blocks sorted
+    by voxel count (`sizes`), a batch closing at `batch_size` blocks or
+    early when the next block would push its pow2 capacity past
+    max_capacity (a single larger block ships alone)."""
+    out: List[np.ndarray] = []
+    chunk: List[int] = []
+    total = 0
+    for i in np.argsort(sizes):
+        n = int(sizes[i])
+        over = max_capacity is not None and chunk and _ceil_pow2(total + n) > max_capacity
+        if len(chunk) == batch_size or over:
+            out.append(np.asarray(chunk, np.int64))
+            chunk, total = [], 0
+        chunk.append(int(i))
+        total += n
+    if chunk:
+        out.append(np.asarray(chunk, np.int64))
+    return out
+
+
 @dataclass
 class Block:
     coords: np.ndarray     # [M,3] voxel coords (block-local grid)
@@ -344,20 +397,10 @@ class BlockTiler:
         self.voxel_size = voxel_size
         self.block_size = block_size
         self.buffer_size = buffer_size
-        # one worst-case grid for every block: the spatial shape only sets
-        # the key bit widths
-        side = int(np.ceil((block_size + 2 * buffer_size) / voxel_size)) + 1
+        side = grid_side(voxel_size, block_size, buffer_size)
         self.grid_shape = (side, side, side)
-        xyz = np.asarray(cloud.xyz, np.float32)
-        rgb = (
-            np.asarray(cloud.rgb, np.float32)
-            if cloud.rgb is not None
-            else np.zeros_like(xyz)
-        )
-        # the cells holding more than min_points points, in lexicographic order
-        cell, cells = native.block_ids(xyz, block_size)
-        ids = cells[np.bincount(cell, minlength=len(cells)) > min_points].astype(np.int64)
-        ids = ids[np.lexsort(ids.T[::-1])]
+        xyz, rgb = cloud_arrays(cloud)
+        ids = kept_blocks(xyz, block_size, min_points)
         self.block_centres = ids * block_size + block_size / 2
 
         # every block's halo rows in one pass over the points
@@ -383,25 +426,12 @@ class BlockTiler:
     def batches(
         self, batch_size: int = 4, max_capacity: int | None = None
     ) -> Iterator[VoxelBatch]:
-        """Greedy size-bucketed batches of blocks sorted by voxel count; a
-        batch closes early when the next block would push its pow2
-        capacity past max_capacity (a single larger block ships alone)."""
-        order = np.argsort([len(b.coords) for b in self.blocks])
-        chunk: List[Block] = []
-        total = 0
-        for i in order:
-            blk = self.blocks[i]
-            n = len(blk.coords)
-            over = max_capacity is not None and chunk and (
-                _ceil_pow2(total + n) > max_capacity
-            )
-            if len(chunk) == batch_size or over:
-                yield collate_blocks(chunk, batch_size, self.grid_shape, self.voxel_size)
-                chunk, total = [], 0
-            chunk.append(blk)
-            total += n
-        if chunk:
-            yield collate_blocks(chunk, batch_size, self.grid_shape, self.voxel_size)
+        """Greedy size-bucketed batches of blocks (`group_blocks`), each
+        collated when the generator reaches it."""
+        sizes = np.asarray([len(b.coords) for b in self.blocks], np.int64)
+        for chunk in group_blocks(sizes, batch_size, max_capacity):
+            yield collate_blocks([self.blocks[i] for i in chunk], batch_size, self.grid_shape,
+                                 self.voxel_size)
 
 
 def collate_blocks(

@@ -1,22 +1,28 @@
 """Model inference: block-tiled, bucketed sparse-UNet forward.
 
 Counterpart of `smart_tree_tpu/infer/inference.py::ModelInference` on one
-device. `forward` has one transfer format, the JAX package's compact one
-with its download cull. The host sorts each batch's rows by packed voxel
-key once (`VoxelBatch.key_order`) and uploads the sorted keys (int32 bit
-patterns of the uint32 keys, 4 B a voxel), int8 residuals for absolute-xyz
-models (fp16 for 'local' ones) and the interior mask as bits, only the rows
-that hold a voxel (staged to `upload_granularity`). The device keeps their
-active prefix, unpacks coords from the keys (no device sort), runs the plan
-and the network, quantises the heads (`compress_preds`) and partitions the
-rows, so that only the interior rows' int8 class and the medial-class rows'
-fp16 radius and int8 direction come back. The host places them by the key
-order it sorted by. With `medial_classes` rows of any other class get
-medial_vector = 0; without it every class is medial.
+device. `forward` tiles each cloud on the device (core/tiler.py, the
+kernels of csrc/tiler.cu on a card): the cloud's xyz goes up once, the
+halo binning, voxel dedup and each block's key order run there, and the
+host reads two headers of counts, groups the blocks into batches as the
+JAX package does and uploads each batch's slot table. One gather a batch
+writes its sorted input: the int64 keys of its voxels (no device sort), the
+residuals the JAX package's compact upload carries (int8 for absolute-xyz
+models, fp16 for 'local' ones), the interior flags and each row's point
+index. The device unpacks coords from the keys, runs the plan and the
+network, quantises the heads (`compress_preds`) and partitions the rows, so
+that only the interior rows' int8 class and int32 point index and the
+medial-class rows' fp16 radius and int8 direction come back, the JAX
+package's download cull. The host takes the interior rows' xyz and rgb from
+the cloud by those indices. With `medial_classes` rows of any other class
+get medial_vector = 0; without it every class is medial. The rows, their
+order and every value are those of the host tiling's compact transfers
+(`BlockTiler`, `VoxelBatch.key_order` and `_stage_sorted`), which
+`predict()`, training and the tests keep.
 
-`predict()` is the full-precision path, for inspection: int16 coords and
-fp16 residuals of the valid rows up, device sort, fp32 heads and the sort
-order back.
+`predict()` is the full-precision path, for inspection: the host tiler's
+batches, int16 coords and fp16 residuals of the valid rows up, device sort,
+fp32 heads and the sort order back.
 
 With more than one device (`devices=`, by default every visible card, as
 the JAX package takes `jax.devices()`) and more than one batch, `forward`
@@ -31,16 +37,17 @@ each level below exactly its voxels, one host read of each count, so no
 level is padded and none can overflow; every batch takes one UNet pass.
 The plan is held to the budget before the UNet is queued: where the
 footprint model at the plan's level sizes passes `hbm_budget_bytes`, the
-batch is split into two halves of its blocks (`data/dataset.py::
-halve_batch`), each planned afresh; a single block past the budget runs,
+batch is split into two halves of its blocks (`TileBatch.halves`, as
+`data/dataset.py::halve_batch` splits `predict()`'s; a half takes its rows
+of the gathered input), each planned afresh; a single block past the budget runs,
 with a warning. (The JAX package pads each level to a fixed share of the
 one above and reruns an overflowed batch at larger capacities, so that
 `jit` compiles one program per shape; the port runs eagerly.)
 
 `max_in_flight` batches are queued before the host collects the oldest: the
-run half of either path only queues work (pinned uploads, a device-side
-partition, downloads into pinned buffers on a copy stream that waits for an
-event of its own batch), and the host waits for that batch's event only, so
+run half of either path only queues work (pinned uploads, the gather, a
+device-side partition, downloads into pinned buffers on a copy stream that
+waits for an event of its own batch), and the host waits for that batch's event only, so
 collecting batch i overlaps batch i+1 on the card. On a card each in-flight
 slot queues on a stream of its own, so that the count reads of a batch's
 plan wait for that slot's last batch, already collected, and not for the
@@ -77,6 +84,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ..core import tiler
 from ..core.coords import INVALID_KEY, pack_coords, pack_coords_np, sort_keys, unpack_keys
 from ..core.memory import device_budget_bytes, footprint_terms
 from ..core.sparse_ops import ConvConfig
@@ -127,12 +135,6 @@ def make_features(coords16, res16, origins, voxel_size: float, mode: str):
     (VoxelBatch.compressed_xyz_upload)."""
     coords = coords16.to(torch.int32)
     return coords, _features(coords, res16, origins, voxel_size, mode)
-
-
-def _unpack_bits(bits: torch.Tensor, count: int) -> torch.Tensor:
-    """np.unpackbits(bits, count=count) as a bool tensor (big-endian bits)."""
-    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
-    return ((bits.to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[:count].bool()
 
 
 class _Download:
@@ -276,16 +278,18 @@ class ModelInference:
 
     # -- transfers ---------------------------------------------------------
 
-    def _upload(self, *arrays):
-        """Host arrays to the device. On a card from pinned memory without
-        waiting: the copy is ordered on the current stream."""
+    def _upload(self, *arrays, device=None):
+        """Host arrays to `device` (this replica's by default). On a card
+        from pinned memory without waiting: the copy is ordered on the
+        current stream."""
+        device = self.device if device is None else device
         out = []
         with span(self._stats, "infer.upload", "infer.upload_s"):
             for a in arrays:
                 t = torch.from_numpy(np.ascontiguousarray(a))
                 self.link_bytes["upload"] += t.nbytes
-                if self._copy_stream is not None:
-                    t = t.pin_memory().to(self.device, non_blocking=True)
+                if device.type == "cuda":
+                    t = t.pin_memory().to(device, non_blocking=True)
                 out.append(t)
         return out
 
@@ -319,17 +323,18 @@ class ModelInference:
         """The model's exact plan of `x` (level 0 is x's rows)."""
         return self.model.build_plan(x, level_capacity_factor=None, stats=self._stats)
 
-    def _halves(self, vb, plan):
+    def _halves(self, plan, split):
         """None where the plan's modelled peak (core/memory.py at its level
-        rows, max_in_flight batches in flight) fits the budget; else the two
-        halves of vb's blocks, planned afresh by the caller. A single block
-        past the budget runs (None), with a warning."""
+        rows, max_in_flight batches in flight) fits the budget; else
+        `split()`, the two halves of the batch's blocks, planned afresh by
+        the caller. A single block past the budget runs (None), with a
+        warning."""
         rows = tuple(lv.keys.shape[0] for lv in plan.levels)
         peak = self.model.forward_peak(rows, in_flight=max(1, self.max_in_flight),
                                        **self.footprint_terms)
         if peak <= self.hbm_budget_bytes:
             return None
-        halves = halve_batch(vb)
+        halves = split()
         if halves is None:
             log.warning("a one-block batch with levels of %s rows passes the budget of %d "
                         "bytes in the footprint model", rows, self.hbm_budget_bytes)
@@ -371,7 +376,7 @@ class ModelInference:
         the fp32 heads (or a `_Split`)."""
         x, plan, order = self._plan_batch(vb)
         with span(self._stats, "infer.plan", "infer.plan_s"):
-            halves = self._halves(vb, plan)
+            halves = self._halves(plan, lambda: halve_batch(vb))
         if halves is not None:
             del x, plan, order
             return _Split([(half, self._run_batch(half)) for half in halves])
@@ -395,12 +400,13 @@ class ModelInference:
     # -- the forward's path ------------------------------------------------
 
     def _pad_sorted(self, skeys, res, rows: int):
-        """A staged sorted upload on the device at `rows` rows: int32 key bit
-        patterns widened to the int64-held uint32 keys, int8 residuals
-        dequantised to fp16 as the JAX package does; rows past the stage
-        hold INVALID_KEY (sorts last, reads inactive) and zero residuals.
-        The forward takes the active prefix (rows = the active count); the
-        JAX package pads to the batch capacity."""
+        """Sorted keys and residuals on the device at `rows` rows: the keys
+        (int64, or the int32 bit patterns of the JAX package's staged upload)
+        as the int64-held uint32 keys, int8 residuals dequantised to fp16 as
+        the JAX package does; rows past the given ones hold INVALID_KEY
+        (sorts last, reads inactive) and zero residuals. The forward takes
+        the active rows (rows = the gathered rows); the JAX package pads to
+        the batch capacity."""
         k = min(skeys.shape[0], rows)
         keys = torch.full((rows,), INVALID_KEY, dtype=torch.int64, device=skeys.device)
         keys[:k] = skeys[:k].to(torch.int64) & 0xFFFFFFFF
@@ -411,9 +417,9 @@ class ModelInference:
         return keys, r
 
     def _sorted_input(self, vb, n_act: int, skeys, res, origins):
-        """The input tensor of a host-sorted staged upload: its n_act active
-        rows; the keys are the sort order, so coords come from `unpack_keys`
-        and there is no device sort or gather."""
+        """The input tensor of sorted keys and residuals (a batch's gather,
+        core/tiler.py): its n_act active rows; the keys are in sort order,
+        so coords come from `unpack_keys` and there is no device sort."""
         keys, r = self._pad_sorted(skeys, res, n_act)
         active = keys != INVALID_KEY
         coords = unpack_keys(keys, vb.spatial_shape, vb.batch_size)
@@ -421,11 +427,11 @@ class ModelInference:
         feats = torch.where(active[:, None], fv, 0.0)
         return SparseVoxelTensor(keys, feats, active, tuple(vb.spatial_shape), vb.batch_size)
 
-    def _partition(self, preds, active, interior):
-        """The download cull on the device: class rows permuted interior-
-        first, radius / direction rows (interior and medial class)-first, both
-        by a stable sort on the complement so kept rows keep their order (the
-        order the host rebuilds), and the medial count. Without
+    def _partition(self, preds, active, interior, index):
+        """The download cull on the device: class rows and the rows' point
+        indices permuted interior-first, radius / direction rows (interior
+        and medial class)-first, each by a stable sort on the complement so
+        kept rows keep their key order, and the medial count. Without
         `medial_classes` every interior row is medial: one permutation."""
         keep_i = active & interior
         cls = preds["class_l"]
@@ -435,53 +441,63 @@ class ModelInference:
             keep_m = keep_i & functools.reduce(torch.logical_or,
                                                [cls == c for c in self.medial_classes])
             perm_m = torch.sort((~keep_m).to(torch.uint8), stable=True).indices
-        return (cls[perm_i], preds["radius"][perm_m], preds["direction"][perm_m],
+        return (cls[perm_i], index[perm_i], preds["radius"][perm_m], preds["direction"][perm_m],
                 keep_m.sum(dtype=torch.int64))
+
+    def _gathered(self, vb):
+        """A batch's inputs (core/tiler.py `gather`) on this replica's
+        device: its slot table up, then one gather on the tiling's device,
+        copied over where the replica's card is another; a half takes its
+        rows of the inputs its batch gathered."""
+        if vb.inputs is None:
+            dev = vb.tiling.device
+            (table,) = self._upload(vb.table(), device=dev)
+            with span(self._stats, "infer.pack", "infer.pack_s"):
+                inputs = tiler.gather(vb, table, self.res_dtype == np.int8)
+                if dev != self.device:
+                    inputs = tuple(t.to(self.device, non_blocking=True) for t in inputs)
+                vb.inputs = inputs
+        return vb.part()
 
     @torch.no_grad()
     def _run_batch_culled(self, vb):
-        """Queue one batch: (download of the medial count; the partitioned
-        class, radius and direction on the device; the batch's active rows
-        in the key order of the upload), or a `_Split`."""
-        with span(self._stats, "infer.pack", "infer.pack_s"):
-            keys, order, n_act = vb.key_order()     # the batch's one key sort
-            skeys, res, orig, _, bits = vb._stage_sorted(keys, order, n_act,
-                                                        self.upload_granularity,
-                                                        self.res_dtype)
-        keys_d, res_d, orig_d, bits_d = self._upload(skeys.view(np.int32), res, orig, bits)
+        """Queue one batch of the device tiling (a core/tiler.py
+        `TileBatch`): (download of the medial count; the partitioned class,
+        point index, radius and direction on the device), or a `_Split`."""
+        keys, res, interior, index, origins = self._gathered(vb)
         with span(self._stats, "infer.plan", "infer.plan_s"):
-            x = self._sorted_input(vb, n_act, keys_d, res_d, orig_d)
+            x = self._sorted_input(vb, vb.rows, keys, res, origins)
             plan = self._plan(x)
-            halves = self._halves(vb, plan)
+            halves = self._halves(plan, vb.halves)
         if halves is not None:
             del x, plan
             return _Split([(half, self._run_batch_culled(half)) for half in halves])
         with span(self._stats, "infer.unet", "infer.unet_s"):
             preds = compress_preds(self._unet(x, plan))
-            interior = _unpack_bits(bits_d, n_act)
-            cls_p, rad_p, dir_p, n_med = self._partition(preds, x.active, interior)
-            # the medial count comes back alone; the three downloads are
-            # sliced to it in _collect_culled
-            return self._download([n_med[None]]), (cls_p, rad_p, dir_p), order[:n_act]
+            *culled, n_med = self._partition(preds, x.active, interior, index)
+            # the medial count comes back alone; the downloads are sliced to
+            # it in _collect_culled
+            return self._download([n_med[None]]), culled
 
     @_collect_half
     def _collect_culled(self, vb, out, sinks):
-        """Read one batch into the sinks. The host rebuilds both device
-        permutations from what it has (its mask and the run half's key order
-        for the interior rows, the downloaded classes for the medial rows),
-        so the radius / direction download covers exactly the medial
-        interior rows; the other interior rows get medial_vector = 0."""
-        small, (cls_p, rad_p, dir_p), active = out
+        """Read one batch into the sinks. The interior rows come back in the
+        device's key order with their point indices, whose xyz and rgb the
+        host takes from the cloud it holds; the radius / direction download
+        covers exactly the medial interior rows (the host finds them among
+        the downloaded classes); the other interior rows get medial_vector
+        = 0."""
+        small, (cls_p, idx_p, rad_p, dir_p) = out
         m = int(small.get()[0][0])
-        rows = active[vb.mask[active]]      # the device's keep_i: original rows, sorted
-        n_i = len(rows)
+        n_i = vb.n_interior      # the device's keep_i
         if n_i == 0:
             return
-        cap = len(vb.coords)
+        cap = vb.capacity
         g = self.upload_granularity
         ni_stage, m_stage = stage_rows(n_i, cap, g), stage_rows(m, cap, g)
-        cls_s, r_s, d_s = self._download(
-            [cls_p[:ni_stage], rad_p[:m_stage], dir_p[:m_stage]], small.ready).get()
+        cls_s, idx_s, r_s, d_s = self._download(
+            [cls_p[:ni_stage], idx_p[:ni_stage], rad_p[:m_stage], dir_p[:m_stage]],
+            small.ready).get()
         cls = cls_s[:n_i]
         med = (np.ones(n_i, bool) if self.medial_classes is None
                else np.isin(cls, np.asarray(self.medial_classes, cls.dtype)))
@@ -494,24 +510,33 @@ class ModelInference:
         pos = np.flatnonzero(med)
         radius[pos] = r_s[:m].astype(np.float32)
         direction[pos] = decode_direction(d_s[:m])
+        rows = idx_s[:n_i]
+        t = vb.tiling
         out_xyzrgb, out_radius, out_dir, out_class = sinks
-        out_xyzrgb.append(vb.feats[rows][:, :6])
+        out_xyzrgb.append(np.concatenate([np.take(t.xyz, rows, axis=0),
+                                          np.take(t.rgb, rows, axis=0)], axis=1))
         out_radius.append(radius)
         out_dir.append(direction)
         out_class.append(cls)
 
     # -- entry points --------------------------------------------------------
 
-    def _windowed(self, cloud: Cloud, run: str, collect: str, stats):
-        """Tile the cloud and run every batch through the halves named `run`
-        and `collect`: the sinks. On one device at most max_in_flight batches
-        are queued ahead of the one being collected; on several, with more
-        than one batch, `_submit_multi_device` deals them out."""
+    def _tile_batches(self, cloud: Cloud, stats=None) -> list:
+        """The forward's batches: the cloud tiled on the device
+        (core/tiler.py, inside `infer.tile`), then its blocks grouped on the
+        host (inside `infer.collate`)."""
         with span(stats, "infer.tile", "infer.tile_s"):
-            tiler = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
-            count(stats, "tile_box_tests", tiler.box_tests)
-        batches = _collated(tiler.batches(self.batch_size, max_capacity=self.max_batch_capacity),
-                            stats)
+            tiling = tiler.tile_cloud(cloud, self.voxel_size, self.block_size, self.buffer_size,
+                                      self.device, stats=stats)
+            self.link_bytes["upload"] += tiling.upload_bytes
+        with span(stats, "infer.collate", "infer.collate_s"):
+            return tiling.batches(self.batch_size, self.max_batch_capacity)
+
+    def _windowed(self, batches, run: str, collect: str, stats):
+        """Run every batch through the halves named `run` and `collect`: the
+        sinks. On one device at most max_in_flight batches are queued ahead
+        of the one being collected; on several, with more than one batch,
+        `_submit_multi_device` deals them out."""
         sinks = ([], [], [], [])
         self.plan_rows = []
         self._stats = stats
@@ -545,7 +570,7 @@ class ModelInference:
         if self._sharded is None:
             self._sharded = ShardedForward(self, self.devices)
         replicas = self._sharded.replicas(self)
-        keyf = lambda vb: (len(vb.coords), vb.spatial_shape, vb.batch_size)  # noqa: E731
+        keyf = lambda vb: (vb.capacity, vb.spatial_shape, vb.batch_size)  # noqa: E731
         for _, group in itertools.groupby(sorted(batches, key=keyf), key=keyf):
             for chunk, keep in device_groups(list(group), len(replicas)):
                 launched = ShardedForward.launch(replicas, chunk, keep, run)
@@ -556,8 +581,13 @@ class ModelInference:
         every block, through the full-download path: xyz, rgb, radius [n,1]
         (log radius), direction [n,3], class_logits. `stats` as for
         `forward`."""
+        with span(stats, "infer.tile", "infer.tile_s"):
+            tiling = BlockTiler(cloud, self.voxel_size, self.block_size, self.buffer_size)
+            count(stats, "tile_box_tests", tiling.box_tests)
+        batches = _collated(tiling.batches(self.batch_size, max_capacity=self.max_batch_capacity),
+                            stats)
         out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
-            cloud, "_run_batch", "_collect", stats)
+            batches, "_run_batch", "_collect", stats)
         with span(stats, "infer.collect", "infer.collect_s"):
             if not out_xyzrgb:
                 z = np.zeros((0, 3), np.float32)
@@ -582,14 +612,17 @@ class ModelInference:
 
         `stats`, when given, receives the host seconds of the forward's
         stages, which follow one another and do not nest (utils/trace.py):
-        `infer.tile_s` (BlockTiler: block ids, one binning pass, each
-        block's dedup; the counter `tile_box_tests` gets the pass's
-        point-box tests), `infer.collate_s` (`collate_blocks`),
-        `infer.pack_s` (each batch's one key sort and the staging of its
-        upload), `infer.upload_s`, `infer.plan_s` (input tensors, exact
-        plans with their count reads, the budget check), `infer.unet_s`
-        (queueing the UNet, the download cull and the downloads) and
-        `infer.collect_s` (the waits for each batch and the host decode). A PTv3 adds
+        `infer.tile_s` (core/tiler.py: the cloud's upload, the kept blocks
+        on the host, the tiler's kernels and its two reads; the counters
+        `tile_box_tests`, the binning's point-box tests, and
+        `tile_fetches`, those reads), `infer.collate_s` (the host's
+        grouping of blocks into batches), `infer.upload_s` (each batch's
+        slot table), `infer.pack_s` (queueing each batch's gather),
+        `infer.plan_s` (input tensors, exact plans with their count reads,
+        the budget check), `infer.unet_s` (queueing the UNet, the download
+        cull and the downloads) and `infer.collect_s` (the waits for each
+        batch and the host decode). `predict` fills the same keys from the
+        host tiler's stages, without `tile_fetches`. A PTv3 adds
         `infer.serialize_s` (its plans' offsets reads, codes, orders and
         patch indices, inside `infer.plan_s`), the counters `attn_patches`
         and `attn_pad_rows` (patches attended, rows its padding repeated,
@@ -597,7 +630,7 @@ class ModelInference:
         `infer.attention` around each block's attention."""
         with span(stats, "infer.forward"):
             out_xyzrgb, out_radius, out_dir, out_class = self._windowed(
-                cloud, "_run_batch_culled", "_collect_culled", stats)
+                self._tile_batches(cloud, stats), "_run_batch_culled", "_collect_culled", stats)
             with span(stats, "infer.collect", "infer.collect_s"):
                 if not out_xyzrgb:  # too sparse to form any block
                     z = np.zeros((0, 3), np.float32)

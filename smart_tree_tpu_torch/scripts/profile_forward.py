@@ -10,11 +10,13 @@ configuration's: `forward` with the download cull to `medial_classes=[0]`;
 `--full` profiles `predict()`, the full fp32 download. After one warm-up
 pass it prints one JSON line with:
   - host block tiling with the native dedup (`voxelize_host`) and with the
-    numpy one (`voxelize_host_plain`), and whether the two tilings agree;
-  - per batch, each ended by a device synchronise: the run half (upload,
-    the exact plan with its count reads, UNet, partition) and the collect
-    half (fetch, download, host reorder), the plan's level rows, and the
-    bytes the forward moved each way;
+    numpy one (`voxelize_host_plain`), and whether the two tilings agree
+    (`predict()`'s tiler); the forward's device tiling (core/tiler.py) and
+    its grouping into batches;
+  - per batch, each ended by a device synchronise: the run half (slot
+    table, gather or upload, the exact plan with its count reads, UNet,
+    partition) and the collect half (fetch, download, host rows), the
+    plan's level rows, and the bytes the forward moved each way;
   - whole passes at max_in_flight 1 and 2;
   - torch.profiler's device time by kernel over one more pass, its sum,
     and the device's busy share of that pass's wall time (the profiler
@@ -98,10 +100,13 @@ def main(argv=None) -> int:
 
     tiler, native_s = _sync_time(lambda: BlockTiler(cloud, 0.01, 4.0, 0.4))
     plain, numpy_s = _sync_time(lambda: NumpyTiler(cloud, 0.01, 4.0, 0.4))
-    batches, batch_s = _sync_time(
+    host_batches, batch_s = _sync_time(
         lambda: list(tiler.batches(4, max_capacity=mi.max_batch_capacity)))
+    device_batches, device_s = _sync_time(lambda: mi._tile_batches(cloud))
+    batches = host_batches if args.full else device_batches
     phases = {"tiling_native_s": native_s + batch_s, "tiling_numpy_s": numpy_s + batch_s,
-              "tilings_agree": tilings_agree(tiler, plain), "run_s": 0.0, "collect_s": 0.0}
+              "tilings_agree": tilings_agree(tiler, plain), "tiling_device_s": device_s,
+              "run_s": 0.0, "collect_s": 0.0}
     mi.link_bytes.update(upload=0, download=0)
     sinks = ([], [], [], [])
     per_batch = []
@@ -111,7 +116,7 @@ def main(argv=None) -> int:
         _, t_collect = _sync_time(lambda: collect(vb, out, sinks))
         phases["run_s"] += t_run
         phases["collect_s"] += t_collect
-        per_batch.append({"capacity": len(vb.coords), "level_rows": mi.plan_rows[-1],
+        per_batch.append({"capacity": vb.capacity, "level_rows": mi.plan_rows[-1],
                           "run_s": t_run, "collect_s": t_collect})
     phases["link_bytes"] = dict(mi.link_bytes)
     forward_s = {}

@@ -503,3 +503,64 @@ def test_spans_leave_no_event_on_the_card(cuda):
                if not e.name.startswith(("Memcpy", "Memset"))]
     assert kernels
     assert window.kernel_busy_s(events) == window.union_s(kernels)
+
+
+def _tiler_cloud(name):
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.tools.bench_scan import make_forest
+
+    if name == "bench":     # chip_smoke.py's bench tree
+        return CentreCloud()(generate_tree(seed=0, height=12.0, trunk_radius=0.25,
+                                           points_per_m2=12000.0, foliage_points=20000)[0])
+    return make_forest(6, 8000.0, 0)   # the benchmark's forest
+
+
+@pytest.mark.parametrize("name", ["bench", "forest"])
+def test_tiler_kernels_match_the_plain_version(cuda, name):
+    """csrc/tiler.cu against core/tiler.py's plain version on the bench tree
+    and the forest (block 4 m, buffer 0.4 m, voxel 1 cm): the tiling's
+    arrays and every batch's gather, int8 and fp16 residuals, equal bits."""
+    from smart_tree_tpu_torch.core import tiler
+
+    cloud = _tiler_cloud(name)
+    before = tiler.tile_cloud.launches, tiler.gather.launches
+    stats = {}
+    got = tiler.tile_cloud(cloud, 0.01, 4.0, 0.4, cuda, stats=stats)
+    ref = tiler.tile_cloud(cloud, 0.01, 4.0, 0.4, torch.device("cpu"))
+    assert tiler.tile_cloud.launches == before[0] + 7 and stats["tile_fetches"] == 2
+    for field in ("origins", "key", "first", "interior", "vstart"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(ref, field)), field
+    np.testing.assert_array_equal(got.counts, ref.counts)
+    np.testing.assert_array_equal(got.interior_counts, ref.interior_counts)
+    assert got.box_tests == ref.box_tests > 0 and len(got.key) > 100000
+    batches, ref_batches = got.batches(4, 262144), ref.batches(4, 262144)
+    assert [b.blocks.tolist() for b in batches] == [b.blocks.tolist() for b in ref_batches]
+    for b, rb in zip(batches, ref_batches):
+        for int8 in (True, False):
+            a = tiler.gather(b, torch.from_numpy(b.table()).to(cuda), int8)
+            c = tiler.gather(rb, torch.from_numpy(rb.table()), int8)
+            for x, y in zip(a, c):
+                assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+    assert tiler.gather.launches == before[1] + 2 * len(batches)
+
+
+def test_the_forward_tiles_on_the_card(cuda, monkeypatch):
+    """The forward's tiling on a card launches the kernels and never the
+    plain version."""
+    from smart_tree_tpu_torch.core import tiler
+    from smart_tree_tpu_torch.data.augmentations import CentreCloud
+    from smart_tree_tpu_torch.data.synthetic import generate_tree
+    from smart_tree_tpu_torch.infer.inference import ModelInference
+
+    cloud = CentreCloud()(generate_tree(seed=3, height=2.0, trunk_radius=0.08,
+                                        points_per_m2=3000.0, foliage_points=300)[0])
+    monkeypatch.setattr(tiler, "_PlainSteps", None)
+    monkeypatch.setattr(tiler, "_gather_plain", None)
+    mi = ModelInference("smart_tree_tpu/weights/noble-elevator-58.npz", block_size=1.0,
+                        buffer_size=0.1, batch_size=1, medial_classes=[0])
+    tiler.tile_cloud.launches = tiler.gather.launches = 0
+    stats = {}
+    assert len(mi.forward(cloud, stats=stats)) > 1000
+    assert tiler.tile_cloud.launches == 7 and tiler.gather.launches > 1
+    assert stats["tile_fetches"] == 2

@@ -27,6 +27,7 @@ from smart_tree_tpu.data.cloud import Cloud as JCloud
 from smart_tree_tpu_torch.core import coords as tcoords
 from smart_tree_tpu_torch.core import memory
 from smart_tree_tpu_torch.core import plan as tplan
+from smart_tree_tpu_torch.core import tiler
 from smart_tree_tpu_torch.core import rulebook as trb
 from smart_tree_tpu_torch.core.sparse_ops import ConvConfig, gather_conv
 from smart_tree_tpu_torch.core.sparse_tensor import SparseVoxelTensor as TSVT
@@ -270,21 +271,22 @@ def test_a_plan_past_the_budget_splits_before_it_runs(blocks, monkeypatch, caplo
     its blocks, each planned afresh and within the budget. A one-block batch
     cannot split: it runs past the budget, with a warning."""
     cloud = _sparse_cloud()
-    (vb,) = BlockTiler(cloud, 0.025, 0.5, 0.05).batches(8)
-    if blocks == "one":
-        keep = vb.coords[:, 0] == vb.coords[0, 0]
-        vb = vb._replace(valid=vb.valid & keep, coords=np.where(keep[:, None], vb.coords, -1),
-                         mask=vb.mask & keep)
-    budget = memory.estimate_forward_hbm(vb.n_valid, PLANES, 1.0, in_flight=2)["peak"]
+    (host,) = BlockTiler(cloud, 0.025, 0.5, 0.05).batches(8)
+    (vb,) = tiler.tile_cloud(cloud, 0.025, 0.5, 0.05, "cpu").batches(8)
+    interior = int(host.mask.sum())
+    if blocks == "one":     # the batch's first slot alone
+        vb = tiler.TileBatch(vb.tiling, vb.blocks, vb.batch_size, 0, 1)
+        interior = int(host.mask[host.coords[:, 0] == 0].sum())
+    budget = memory.estimate_forward_hbm(vb.rows, PLANES, 1.0, in_flight=2)["peak"]
     mi = ModelInference(WEIGHTS, device="cpu", hbm_budget_bytes=budget, medial_classes=(0,),
                         **SPARSE)
     passes = []
     unet = mi._unet
     monkeypatch.setattr(mi, "_unet", lambda x, plan: passes.append(
         tuple(lv.keys.shape[0] for lv in plan.levels)) or unet(x, plan))
+    keys, res, _, _, origins = mi._gathered(vb)
     whole = tuple(lv.keys.shape[0] for lv in mi._plan(mi._sorted_input(
-        vb, vb.key_order()[2], *mi._upload(*vb.compact_upload_sorted(
-            4096, mi.res_dtype)[:3]))).levels)
+        vb, vb.rows, keys, res, origins)).levels)
     assert memory.estimate_forward_hbm(whole[0], PLANES, in_flight=2,
                                        level_caps=whole)["peak"] > budget
     with caplog.at_level("WARNING", logger=tinf.__name__):
@@ -299,7 +301,7 @@ def test_a_plan_past_the_budget_splits_before_it_runs(blocks, monkeypatch, caplo
                                            level_caps=rows)["peak"] <= budget
     sinks = ([], [], [], [])
     mi._collect_culled(vb, out, sinks)
-    assert sum(len(a) for a in sinks[0]) == int(vb.mask.sum())
+    assert sum(len(a) for a in sinks[0]) == interior
 
 
 def test_level_caps_set_every_level():

@@ -199,24 +199,24 @@ def test_the_main_path_goes_through_the_library(gxx, monkeypatch):
 
 
 def test_the_forward_tiles_through_the_library_and_counts_its_tests(gxx, monkeypatch):
+    """The forward finds its kept blocks through the library
+    (`native.block_ids`, once), and its device tiler (core/tiler.py) counts
+    the point-box tests `native.tile_blocks` makes on those blocks."""
     from smart_tree_tpu_torch.infer.inference import ModelInference
 
     calls = []
-    tile_blocks = native.tile_blocks
-
-    def counted(*a):
-        calls.append(tile_blocks(*a))
-        return calls[-1]
-
-    monkeypatch.setattr(native, "tile_blocks", counted)
+    block_ids = native.block_ids
+    monkeypatch.setattr(native, "block_ids", lambda *a: calls.append(len(a[0])) or block_ids(*a))
     xyz = _cloud(6, 8000, 0.0, 3.0)
     mi = ModelInference("smart_tree_tpu/weights/noble-elevator-58.npz", device="cpu",
                         block_size=2.0, buffer_size=0.2)
     stats = {}
     mi.forward(Cloud(xyz=xyz), stats=stats)
-    assert len(calls) == 1 and len(calls[0][0]) > 2
-    assert stats["tile_box_tests"] == calls[0][3]
-    assert len(calls[0][1]) <= stats["tile_box_tests"] <= 27 * len(xyz)
+    assert calls == [len(xyz)]
+    ids = tds.kept_blocks(xyz, 2.0)
+    _, rows, _, tests = native.tile_blocks(xyz, ids, 2.0, 0.2)
+    assert len(ids) > 2 and stats["tile_box_tests"] == tests
+    assert len(rows) <= stats["tile_box_tests"] <= 27 * len(xyz)
 
 
 def test_a_failed_build_raises_on_the_main_path(gxx, monkeypatch, tmp_path):

@@ -221,7 +221,7 @@ def test_rerun_past_the_budget_splits(mode):
         inner = getattr(mi, name)
         calls = []
         setattr(mi, name, lambda vb, inner=inner, calls=calls: (
-            calls.append(len(vb.coords)), inner(vb))[1])
+            calls.append(vb.capacity), inner(vb))[1])
         runs.append(calls)
         if mode == "predict":
             p = mi.predict(cloud)

@@ -111,9 +111,12 @@ def test_forward_is_unchanged_by_stats_and_its_stages_tile_it(tree, mode):
     for a, b, c in zip(_fields(plain), _fields(timed), _fields(traced)):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
-    assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS} | {"tile_box_tests"}
+    # the forward's device tiler also counts its host reads
+    fetches = {"tile_fetches"} if entry == "forward" else set()
+    assert set(stats) == {f"{s}_s" for s in FORWARD_SPANS} | {"tile_box_tests"} | fetches
     assert all(v >= 0.0 for v in stats.values())
     assert 0 < stats["tile_box_tests"] <= 8 * len(tree)   # buffer under half a block
+    assert stats.get("tile_fetches", 2) == 2
     spans = _spans(prof)
     stages = sorted(s for s in spans if s[0] in FORWARD_SPANS)
     assert {s[0] for s in stages} == set(FORWARD_SPANS)

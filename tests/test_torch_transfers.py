@@ -32,6 +32,7 @@ from smart_tree_tpu.data import dataset as jds
 from smart_tree_tpu.data.augmentations import CentreCloud as JCentre
 from smart_tree_tpu.data.synthetic import generate_tree as jgenerate
 from smart_tree_tpu_torch.core import coords as tcoords
+from smart_tree_tpu_torch.core import tiler
 from smart_tree_tpu_torch.data import dataset as tds
 from smart_tree_tpu_torch.data.augmentations import CentreCloud
 from smart_tree_tpu_torch.data.synthetic import generate_tree
@@ -199,15 +200,13 @@ def test_device_pad_of_the_sorted_upload_equals_jax(tiled, kind):
     tb, jb = tiled
     port = ModelInference(WEIGHTS[kind], device="cpu")
     jmi = jinf.ModelInference(WEIGHTS[kind])
-    skeys, res, _, _, bits = tb.compact_upload_sorted(4096, port.res_dtype, with_mask=True)
+    skeys, res, _, _ = tb.compact_upload_sorted(4096, port.res_dtype)
     cap = len(tb.coords)
     keys, r = port._pad_sorted(torch.from_numpy(skeys.view(np.int32)), torch.from_numpy(res), cap)
     jk, jr = jmi._pad_fn_sorted(len(skeys), cap, kind == "int8")(skeys, res)
     np.testing.assert_array_equal(keys.numpy(), np.asarray(jk).astype(np.int64))
     assert r.dtype == torch.float16
     np.testing.assert_array_equal(r.numpy().view(np.uint16), np.asarray(jr).view(np.uint16))
-    np.testing.assert_array_equal(tinf._unpack_bits(torch.from_numpy(bits), len(skeys)).numpy(),
-                                  np.unpackbits(bits, count=len(skeys)).astype(bool))
 
 
 # ---------------------------------------------------------------- forwards
@@ -326,19 +325,21 @@ def test_culled_equals_compact_on_branch_rows(runs):
 
 
 def test_link_bytes_are_the_staged_encodings(runs):
-    """Bytes over the link in one forward: the one run of the batch uploads
-    exactly the staged sorted encoding and the mask bits, smaller than the
-    full path's encoding of the same batch, and downloads the medial count
-    (8 B), the interior rows' int8 class and the medial rows' fp16 radius
-    and int8 direction, each staged to the granularity. Without
-    `medial_classes` every interior row is medial, so where the cull leaves
-    rows out (synthetic-r3 on TREE) the culled download is smaller; at the
-    default granularity both stage to 4096 rows here, so that pair runs
-    again at 256."""
+    """Bytes over the link in one forward: the cloud's xyz (12 B a point) and
+    its kept block ids (24 B a block) go up once for the device tiler, then
+    the one batch's slot table (8 B a slot and a row offset per slot and
+    one), all of it smaller than the full path's encoding of the same batch;
+    the download is the medial count (8 B), the interior rows' int8 class
+    and int32 point index and the medial rows' fp16 radius and int8
+    direction, each staged to the granularity. Without `medial_classes`
+    every interior row is medial, so where the cull leaves rows out
+    (synthetic-r3 on TREE) the culled download is smaller; at the default
+    granularity both stage to 4096 rows here, so that pair runs again at
+    256."""
     vb, moved = runs["vb"], runs["bytes"]
-    res_dtype = np.int8 if runs["kind"] == "int8" else np.float16
-    skeys, res, orig, _, bits = vb.compact_upload_sorted(4096, res_dtype, with_mask=True)
-    per_run = skeys.nbytes + res.nbytes + orig.nbytes + bits.nbytes
+    n = vb.n_valid
+    slots = len(np.unique(vb.coords[:n, 0]))
+    per_run = 12 * len(_clouds()[0]) + 24 * slots + 8 * (2 * slots + 1)
     assert moved["compact"]["upload"] == moved["culled"]["upload"] == per_run
     full = sum(a.nbytes for a in vb.compressed_xyz_upload()) + vb.valid.nbytes
     assert per_run < full
@@ -347,7 +348,7 @@ def test_link_bytes_are_the_staged_encodings(runs):
 
     def download(moved, medial, g):
         stage_i, stage_m = (tds.stage_rows(n, cap, g) for n in (n_i, m if medial else n_i))
-        assert moved["download"] == 8 + stage_i + stage_m * (2 + 3)
+        assert moved["download"] == 8 + stage_i * (1 + 4) + stage_m * (2 + 3)
         return moved["download"]
 
     assert download(moved["compact"], None, 4096) >= download(moved["culled"], [0], 4096)
@@ -375,7 +376,7 @@ def test_forced_overflow_reruns_the_same_mode_and_gives_the_default_result(media
     calls, passes = [], []
     run, unet = forced._run_batch_culled, forced._unet
     monkeypatch.setattr(forced, "_run_batch_culled",
-                        lambda vb: calls.append(len(vb.coords)) or run(vb))
+                        lambda vb: calls.append(vb.capacity) or run(vb))
     monkeypatch.setattr(forced, "_unet", lambda x, plan: passes.append(x.capacity)
                         or unet(x, plan))
     monkeypatch.setattr(forced, "_run_batch", lambda *a, **k: pytest.fail("full path"))
@@ -383,7 +384,7 @@ def test_forced_overflow_reruns_the_same_mode_and_gives_the_default_result(media
     # exact plans: one run and one UNet pass for the one batch, on the
     # batch's active rows
     (vb,) = tds.BlockTiler(cloud, 0.01, 4.0, 0.4).batches(4, max_capacity=forced.max_batch_capacity)
-    assert calls == [len(vb.coords)] and passes == [vb.key_order()[2]]
+    assert calls == [vb.capacity] and passes == [vb.key_order()[2]]
     for f in ("xyz", "rgb", "medial_vector", "class_l"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
 
@@ -403,20 +404,28 @@ def test_in_flight_window_gives_identical_clouds(medial):
 
 
 def test_forward_sorts_each_batch_once(monkeypatch):
-    """The run half's key order is the one the collect half places the rows
-    by: one `key_order()` a batch."""
+    """The forward tiles each cloud once on the device (core/tiler.py, two
+    host reads: `tile_fetches` <= 2) and gathers each batch's sorted rows
+    once; the host sorts no keys (no `key_order()`, no `BlockTiler`), and
+    the rows come back in the key order with their point indices."""
     cloud, _ = _clouds()
     mi = ModelInference(WEIGHTS["fp16"], device="cpu", block_size=1.0, buffer_size=0.1,
                         batch_size=1)
     n_batches = len(list(tds.BlockTiler(cloud, 0.01, 1.0, 0.1).batches(
         1, max_capacity=mi.max_batch_capacity)))
     assert n_batches >= 4
-    calls = []
-    key_order = tds.VoxelBatch.key_order
-    monkeypatch.setattr(tds.VoxelBatch, "key_order",
-                        lambda vb: calls.append(len(vb.coords)) or key_order(vb))
-    assert len(mi.forward(cloud)) > 0
-    assert len(calls) == n_batches
+    tiles, gathers = [], []
+    tile_cloud, gather = tiler.tile_cloud, tiler.gather
+    monkeypatch.setattr(tiler, "tile_cloud",
+                        lambda *a, **k: tiles.append(len(a[0])) or tile_cloud(*a, **k))
+    monkeypatch.setattr(tiler, "gather",
+                        lambda vb, *a: gathers.append(vb.capacity) or gather(vb, *a))
+    monkeypatch.setattr(tds.VoxelBatch, "key_order", lambda vb: pytest.fail("a host key sort"))
+    monkeypatch.setattr(tinf, "BlockTiler", lambda *a, **k: pytest.fail("the host tiler"))
+    stats = {}
+    assert len(mi.forward(cloud, stats=stats)) > 0
+    assert tiles == [len(cloud)] and len(gathers) == n_batches
+    assert 0 < stats["tile_fetches"] <= 2
 
 
 def test_device_and_host_medial_counts_must_agree(monkeypatch):
@@ -425,8 +434,8 @@ def test_device_and_host_medial_counts_must_agree(monkeypatch):
     partition = mi._partition
 
     def off_by_one(*args):
-        cls, rad, direction, n_med = partition(*args)
-        return cls, rad, direction, n_med + 1
+        *culled, n_med = partition(*args)
+        return (*culled, n_med + 1)
 
     monkeypatch.setattr(mi, "_partition", off_by_one)
     with pytest.raises(RuntimeError, match="download cull"):
